@@ -1,0 +1,131 @@
+"""The port's two kernels on the CPU: the plain PyTorch twins against the
+JAX package's Pallas kernels (interpret mode), the wrappers' CPU routing
+and launch counters, and the configurations the port refuses. The CUDA
+kernels themselves are tested in tests/test_torch_cuda.py."""
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from tests.test_pallas_kernels import _world
+from tpuslam.ops.association import associate as jax_associate
+from tpuslam.ops.cholesky import cholesky_pallas
+from tpuslam.ops.pallas_assoc import associate_pallas
+from tpuslam_torch.backend.graph import GraphCapacity
+from tpuslam_torch.frontend.keyframe import perform_keyframe
+from tpuslam_torch.frontend.state import initial_state
+from tpuslam_torch.ops import assoc_kernel as A
+from tpuslam_torch.ops import cholesky as C
+from tpuslam_torch.ops.association import associate
+from tpuslam_torch.runtime.config import SlamConfig
+
+
+def _cov(m, seed=3):
+    rng = np.random.default_rng(seed)
+    sig = rng.uniform(0.2, 0.6, (m,))
+    rho = rng.uniform(-0.3, 0.3, (m,))
+    a = 1.0 / sig ** 2
+    return np.stack([a, rho * a, a * (1 + rho ** 2)], axis=1).astype(np.float32)
+
+
+# the three cases of tests/test_pallas_kernels.py:26-83
+ASSOC_CASES = {
+    "euclidean": dict(world=dict(), gate2=1.44, mahalanobis=False),
+    "mahalanobis": dict(world=dict(seed=2), gate2=9.21, mahalanobis=True),
+    "multi_tile": dict(world=dict(n=61, m=2000, seed=5), gate2=1.44, mahalanobis=False),
+}
+
+
+@pytest.mark.parametrize("case", list(ASSOC_CASES))
+def test_associate_plain_matches_pallas(case):
+    c = ASSOC_CASES[case]
+    obs_xy, obs_type, lm_xy, lm_type = _world(**c["world"])
+    cov = _cov(len(lm_xy))
+    want = associate_pallas(jnp.asarray(obs_xy), jnp.asarray(obs_type), jnp.asarray(lm_xy),
+                            jnp.asarray(lm_type), c["gate2"],
+                            lm_cov_inv_packed=jnp.asarray(cov) if c["mahalanobis"] else None,
+                            mahalanobis=c["mahalanobis"], interpret=True)
+    A.launches = 0
+    got = A.associate_kernel(torch.tensor(obs_xy), torch.tensor(obs_type), torch.tensor(lm_xy),
+                             torch.tensor(lm_type), c["gate2"],
+                             torch.tensor(cov) if c["mahalanobis"] else None,
+                             mahalanobis=c["mahalanobis"])
+    assert A.launches == 0            # a CPU tensor takes the plain twin
+    assert got[0].dtype == torch.int32 and got[1].dtype == torch.bool
+    np.testing.assert_array_equal(got[0].numpy(), np.asarray(want[0]))
+    np.testing.assert_array_equal(got[1].numpy(), np.asarray(want[1]))
+    assert got[1].any()
+    np.testing.assert_allclose(got[2].numpy(), np.asarray(want[2]), rtol=1e-5)
+
+
+@pytest.mark.parametrize("mode,signed", [("first", False), ("nearest", False),
+                                         ("mahalanobis", False), ("first", True)])
+def test_dense_associate_matches_jax(mode, signed):
+    obs_xy, obs_type, lm_xy, lm_type = _world(seed=7)
+    rng = np.random.default_rng(8)
+    obs_valid = rng.random(len(obs_xy)) < 0.9
+    lm_valid = rng.random(len(lm_xy)) < 0.9
+    p = _cov(len(lm_xy))
+    cov = np.stack([np.stack([p[:, 0], p[:, 1]], -1), np.stack([p[:, 1], p[:, 2]], -1)], -2)
+    gate = 9.21 if mode == "mahalanobis" else 1.2
+    args = (obs_xy, obs_type, obs_valid, lm_xy, lm_type, lm_valid)
+    want = jax_associate(*map(jnp.asarray, args), gate, mode=mode,
+                         lm_cov_inv=jnp.asarray(cov), type_signed_bug=signed)
+    got = associate(*map(torch.tensor, args), gate, mode=mode,
+                    lm_cov_inv=torch.tensor(cov), type_signed_bug=signed)
+    np.testing.assert_array_equal(got[0].numpy(), np.asarray(want[0]))
+    np.testing.assert_array_equal(got[1].numpy(), np.asarray(want[1]))
+    np.testing.assert_allclose(got[2].numpy(), np.asarray(want[2]), rtol=1e-5)
+
+
+def _spd(n):
+    rng = np.random.default_rng(n)
+    m = rng.normal(0, 1, (n, n)).astype(np.float32)
+    return m @ m.T / n + np.eye(n, dtype=np.float32) * 2.0
+
+
+@pytest.mark.parametrize("n", [64, 128, 200, 384])
+def test_cholesky_plain_matches_pallas(n):
+    spd = _spd(n)
+    want = np.asarray(cholesky_pallas(jnp.asarray(spd), interpret=True))
+    C.launches = 0
+    got = C.cholesky(torch.tensor(spd))
+    assert C.launches == 0            # a CPU tensor takes the plain twin
+    np.testing.assert_allclose(got.numpy(), want, atol=5e-4, rtol=1e-3)
+    np.testing.assert_array_equal(np.triu(got.numpy(), 1), 0.0)
+
+
+def test_cholesky_plain_clamps_nonpositive_pivots():
+    """The twin clamps a non-positive pivot as the TPU kernel does
+    (rsqrt(max(pivot, 1e-30))) instead of raising."""
+    a = torch.tensor(_spd(80))
+    a[70, 70] = -1.0
+    got = C.cholesky_plain(a)
+    want = np.asarray(cholesky_pallas(jnp.asarray(a.numpy()), interpret=True))
+    assert got[70, 70] < 0 and np.isfinite(got[:70].numpy()).all()
+    np.testing.assert_allclose(got[:70].numpy(), want[:70], atol=5e-4, rtol=1e-3)
+
+
+def test_first_association_with_kernel_raises():
+    cap = GraphCapacity(8, 8, 32)
+    cfg = SlamConfig(capacity=cap, use_pallas_association=True)
+    with pytest.raises(ValueError):
+        perform_keyframe(initial_state(cap, "cpu"), torch.zeros(4, 4),
+                         torch.zeros(4, dtype=torch.bool), torch.zeros(3), cfg)
+
+
+@pytest.mark.parametrize("field,value", [
+    ("association", "mahalanobis"), ("use_gps_prior", True), ("periodic_gn_every", 4),
+    ("localizer_refine", True), ("mapping_publish_refine", True),
+    ("vectorized_mapping", False), ("use_ekf_fusion", True), ("assoc_mesh", object())])
+def test_unported_config_raises(field, value):
+    cap = GraphCapacity(8, 8, 32)
+    cfg = SlamConfig(capacity=cap)
+    kw = {}
+    if field == "assoc_mesh":
+        kw["assoc_mesh"] = value
+    else:
+        cfg = cfg.with_(**{field: value})
+    with pytest.raises(NotImplementedError, match=field):
+        perform_keyframe(initial_state(cap, "cpu"), torch.zeros(4, 4),
+                         torch.zeros(4, dtype=torch.bool), torch.zeros(3), cfg, **kw)

@@ -1,0 +1,39 @@
+"""Whole-sequence pipeline (counterpart of `tpuslam.frontend.pipeline`):
+`perform_keyframe` over the frame axis, outputs stacked per field."""
+from __future__ import annotations
+
+import dataclasses
+
+import torch
+
+from tpuslam_torch.frontend.keyframe import KeyframeOutputs, perform_keyframe
+from tpuslam_torch.frontend.state import SlamState, initial_state
+from tpuslam_torch.runtime.config import SlamConfig
+
+__all__ = ["run_sequence", "run_pass"]
+
+
+def run_sequence(state: SlamState, obs_seq, valid_seq, pose_seq, cfg: SlamConfig,
+                 assoc_mesh=None):
+    """Process T keyframes in order.
+
+    obs_seq [T, N, 4], valid_seq [T, N], pose_seq [T, 3] (odometry poses,
+    already heading-corrected), all on the state's device. Returns
+    (final_state, KeyframeOutputs with a leading T axis on every field).
+    """
+    outs = []
+    for t in range(obs_seq.shape[0]):
+        state, out = perform_keyframe(state, obs_seq[t], valid_seq[t], pose_seq[t], cfg,
+                                      assoc_mesh=assoc_mesh)
+        outs.append(out)
+    stacked = KeyframeOutputs(**{
+        f.name: torch.stack([getattr(o, f.name) for o in outs])
+        for f in dataclasses.fields(KeyframeOutputs)})
+    return state, stacked
+
+
+def run_pass(obs_seq, valid_seq, pose_seq, cfg: SlamConfig):
+    """One whole session from a fresh state on the inputs' device.
+    Returns (final_state, stacked KeyframeOutputs)."""
+    state = initial_state(cfg.capacity, obs_seq.device)
+    return run_sequence(state, obs_seq, valid_seq, pose_seq, cfg)
