@@ -14,9 +14,12 @@ Phases, in order; the first that fails ends the run with exit code 1:
                and to a CPU run of the port;
   5. closure solve — `gauss_newton.optimize` on the graph the closure GN
                solves, through the Cholesky kernel and through
-               `torch.linalg.cholesky_ex`;
-  6. timing  — frames/s of phases 3 and 4 and each kernel's time beside its
-               twin's, with CUDA events.
+               `torch.linalg.cholesky_ex`, and the kernel's factor of the
+               solve's ill-conditioned matrix held to a float64 factor;
+  6. timing  — frames/s of phases 3 and 4; each kernel's time per wrapper
+               call beside its twin's and the library call's (CUDA events,
+               in turns), its device time per launch (torch.profiler) and
+               its bound from this run's shapes.
 It prints a `{"kernels": [...]}` line, the card's name and power limit as
 nvidia-smi gives them, and last `{"ok": true, "device": {...}}`. Without a
 CUDA device it fails before any phase. It imports no JAX.
@@ -34,8 +37,6 @@ import traceback
 import numpy as np
 import torch
 
-from tpuslam.sim import SimConfig, simulate, trackdrive
-from tpuslam.sim.simulator import ate
 from tpuslam_torch import _build
 from tpuslam_torch.backend import gauss_newton as gn
 from tpuslam_torch.backend.graph import GraphCapacity
@@ -44,6 +45,7 @@ from tpuslam_torch.frontend.pipeline import run_pass
 from tpuslam_torch.ops import assoc_kernel as A
 from tpuslam_torch.ops import cholesky as C
 from tpuslam_torch.runtime.config import SlamConfig
+from tpuslam_torch.sim import SimConfig, ate, simulate, trackdrive
 
 # The bench scenario (bench.py:34-38) and capacity (bench.py:152-153).
 SIM = dict(laps=1.4, keyframe_dt=0.1, speed=8.0, max_range=20.0, seed=12)
@@ -66,6 +68,10 @@ METRIC_ATOL_M = 1e-3        # ATE / map-error tolerance against the JAX numbers
 POSE_ATOL = 1e-3            # GPU vs CPU port, and kernel vs library GN solve
 CHOL_ATOL, CHOL_RTOL, CHOL_RECON_ATOL = 5e-4, 1e-3, 5e-3
 LAPS_TIMED = 5              # the lap rate is the median of this many laps (host-bound, noisy)
+# H100 SXM peaks for the bound (NVIDIA's data sheet, at 700 W): FP32 outside
+# the tensor cores, and HBM3
+PEAK_FP32_FLOP_S, PEAK_HBM_BYTE_S = 67e12, 3.35e12
+ASSOC_FLOP_PER_PAIR = 5     # Euclidean cost: 2 sub, 2 mul, 1 add (csrc/assoc.cu)
 
 
 def configs():
@@ -136,6 +142,13 @@ def spd(n, seed=None):
     rng = np.random.default_rng(n if seed is None else seed)
     m = rng.normal(0, 1, (n, n)).astype(np.float32)
     return torch.tensor(m @ m.T / n + np.eye(n, dtype=np.float32) * 2.0, device="cuda")
+
+
+def bound(flop: float, nbytes: float):
+    """(ms, "operations" or "bytes"): the least time the card could take for
+    `flop` FP32 operations and `nbytes` moved, and which of the two sets it."""
+    t_ops, t_bytes = flop / PEAK_FP32_FLOP_S, nbytes / PEAK_HBM_BYTE_S
+    return max(t_ops, t_bytes) * 1e3, ("operations" if t_ops >= t_bytes else "bytes")
 
 
 def cuda_ms(fn, reps: int, warmup: bool = True) -> float:
@@ -297,12 +310,43 @@ class Smoke:
         self.log(f"closure: kernel vs cholesky_ex: max|dpose| {dp:.3g}, max|dlm| {dl:.3g} "
                  f"(atol {POSE_ATOL})")
         self.kernels["cholesky"]["launches"] = launches
-        s = self.closure_s
-        got, want = C.cholesky_kernel(s), C.cholesky_plain(s)
-        torch.testing.assert_close(got, want, atol=CHOL_ATOL, rtol=CHOL_RTOL)
-        e = float((got - want).abs().max())
-        self.kernels["cholesky"]["max_abs_err"] = max(self.kernels["cholesky"]["max_abs_err"], e)
-        self.log(f"closure: kernel vs plain twin on the closure's S: max abs err {e:.3g}")
+        self.closure_accuracy(self.closure_s)
+
+    def closure_accuracy(self, s):
+        """The closure's S is ill-conditioned in its last pose rows, where FP32
+        factors in different summation orders differ by more than the twin
+        tolerance of phase 2. So on S each FP32 factor (kernel,
+        `torch.linalg.cholesky_ex`, plain twin) is held to the float64 one.
+        The kernel must be as close to it as the farther of the two
+        references, and its backward error |LL^T - S| must stay within the
+        bound every FP32 Cholesky meets whatever its summation order,
+        gamma_{n+1} |L| |L^T| elementwise (Higham, Accuracy and Stability of
+        Numerical Algorithms, Thm 10.3)."""
+        n = s.shape[0]
+        s64 = s.double()
+        exact = torch.linalg.cholesky(s64)
+        u = 2.0 ** -24
+        gamma = (n + 1) * u / (1 - (n + 1) * u)
+        factors = {"kernel": C.cholesky_kernel(s), "cholesky_ex": torch.linalg.cholesky_ex(s).L,
+                   "twin": C.cholesky_plain(s)}
+        gap, ratio = {}, {}
+        for name, f in factors.items():
+            l = f.double()
+            resid = (l @ l.T - s64).abs()
+            gap[name] = float((l - exact).abs().max())
+            ratio[name] = float((resid / (l.abs() @ l.abs().T).clamp_min(1e-300)).max())
+            self.log(f"closure: S by {name}: max|L - L_float64| {gap[name]:.4g}, "
+                     f"max|LL^T - S| {float(resid.max()):.4g}, backward error / gamma_(n+1) "
+                     f"{ratio[name] / gamma:.4g}")
+        self.log(f"closure: S in float64: condition number {float(torch.linalg.cond(s64)):.3g}, "
+                 f"smallest pivot {float(exact.diagonal().min()):.3g}; max|kernel - twin| "
+                 f"{float((factors['kernel'] - factors['twin']).abs().max()):.3g}")
+        if gap["kernel"] > max(gap["cholesky_ex"], gap["twin"]):
+            raise AssertionError(f"closure: the kernel's factor of S is farther from float64 "
+                                 f"than both references: {gap}")
+        if ratio["kernel"] > gamma:
+            raise AssertionError(f"closure: the kernel's backward error on S is "
+                                 f"{ratio['kernel'] / gamma:.3g} x gamma_(n+1)")
 
     # -- 6
     def timing(self):
@@ -317,39 +361,58 @@ class Smoke:
             self.log(f"timing: {name} lap: median {ms:.1f} ms of {LAPS_TIMED} laps "
                      f"(min {laps[0]:.1f}, max {laps[-1]:.1f}) for {t} frames = "
                      f"{t / ms * 1e3:.1f} frames/s [{self.card}]")
-        oxy, ot, lxy, lt, cov = assoc_world(64, 256, 0)
+        n_obs, n_lm = 64, 256     # the lap's shape: the observation and landmark capacities
+        oxy, ot, lxy, lt, _ = assoc_world(n_obs, n_lm, 0)
         k = self.kernels["assoc"]
-        k["ms"] = cuda_ms(lambda: A.associate_kernel(oxy, ot, lxy, lt, 1.44), reps=200)
+        run = functools.partial(A.associate_kernel, oxy, ot, lxy, lt, 1.44)
+        k["ms"] = cuda_ms(run, reps=200)
         k["plain_ms"] = cuda_ms(lambda: A.associate_plain(oxy, ot, lxy, lt, 1.44), reps=200)
+        k["library_ms"] = None    # no single PyTorch call computes it
+        k["device_ms"] = self.device_ms("assoc", "assoc_kernel", run, reps=50)
+        nbytes = sum(x.numel() * x.element_size() for x in (oxy, ot, lxy, lt, *run()))
+        k["bound_ms"], k["bound_by"] = bound(ASSOC_FLOP_PER_PAIR * n_obs * n_lm, nbytes)
+
         s = self.closure_s
+        n = s.shape[0]
         k = self.kernels["cholesky"]
-        k["ms"] = cuda_ms(lambda: C.cholesky_kernel(s), reps=20)
+        run = functools.partial(C.cholesky_kernel, s)
+        library = functools.partial(torch.linalg.cholesky_ex, s)
+        turns = [cuda_ms(f, reps=20) for f in (library, run, run, library)]
+        k["ms"], k["library_ms"] = (turns[1] + turns[2]) / 2, (turns[0] + turns[3]) / 2
         k["plain_ms"] = cuda_ms(lambda: C.cholesky_plain(s), reps=3)
-        k_lib = cuda_ms(lambda: torch.linalg.cholesky_ex(s), reps=20)
-        self.cholesky_profile(s)
+        k["device_ms"] = self.device_ms("cholesky", "persistent_cholesky", run, reps=20)
+        k["bound_ms"], k["bound_by"] = bound(n ** 3 / 3, 2 * n * n * s.element_size())
         self.lap_profile(obs, valid, poses, lap_ms)
         for k in self.kernels.values():
-            self.log(f"timing: {k['name']} kernel {k['ms'] * 1e3:.1f} us, plain twin "
-                     f"{k['plain_ms'] * 1e3:.1f} us [{self.card}]")
-        self.log(f"timing: torch.linalg.cholesky_ex n={s.shape[0]} {k_lib * 1e3:.1f} us "
-                 f"[{self.card}]")
+            self.log(f"timing: {k['name']} per wrapper call {k['ms'] * 1e3:.1f} us, device "
+                     f"{k['device_ms'] * 1e3:.2f} us per launch, plain twin "
+                     f"{k['plain_ms'] * 1e3:.1f} us, bound {k['bound_ms'] * 1e3:.4g} us "
+                     f"({k['bound_by']}) [{self.card}]")
+        self.log(f"timing: cholesky n={n}: kernel {turns[1] * 1e3:.1f} / {turns[2] * 1e3:.1f} us, "
+                 f"torch.linalg.cholesky_ex {turns[0] * 1e3:.1f} / {turns[3] * 1e3:.1f} us "
+                 f"(in turns: library, kernel, kernel, library) [{self.card}]")
 
-    def cholesky_profile(self, s, reps: int = 5):
-        """Device time of each CUDA kernel the Cholesky wrapper launches, per
-        launch and per factorization of `s`, from torch.profiler."""
+    def device_ms(self, name: str, symbol: str, fn, reps: int) -> float:
+        """Device time per launch of kernel `name` (the `__global__` function
+        `symbol`), from torch.profiler over `reps` calls of its wrapper `fn`.
+        Logs every device row and fails unless each call launched the
+        kernel exactly once."""
         from torch.profiler import ProfilerActivity, profile
+        fn()
+        torch.cuda.synchronize()
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
             for _ in range(reps):
-                C.cholesky_kernel(s)
+                fn()
             torch.cuda.synchronize()
-        for e in prof.key_averages():
-            if e.device_type.name != "CUDA" or e.key.startswith(("Memcpy", "Memset")):
-                continue
-            name = e.key.split("::")[-1].split("(")[0]   # "(anonymous namespace)::panel_kernel(...)"
-            self.log(f"timing: cholesky n={s.shape[0]} {name}: {e.count // reps} launches "
-                     f"per factorization, {e.self_device_time_total / e.count:.1f} us each, "
-                     f"{e.self_device_time_total / reps:.1f} us per factorization "
-                     f"[{self.card}]")
+        rows = [e for e in prof.key_averages() if e.device_type.name == "CUDA"]
+        for e in rows:
+            self.log(f"timing: {name} device row {e.key[:70]!r}: {e.count / reps:g} per call, "
+                     f"{e.self_device_time_total / e.count:.2f} us each [{self.card}]")
+        kernel = [e for e in rows if symbol in e.key]
+        if [e.count for e in kernel] != [reps]:
+            raise AssertionError(f"{name}: want one kernel launch per call, profiler rows "
+                                 f"{[(e.key, e.count) for e in kernel]}")
+        return kernel[0].self_device_time_total / reps / 1e3
 
     def lap_profile(self, obs, valid, poses, lap_ms):
         """Device-busy share of each lap, from one lap under torch.profiler:

@@ -9,12 +9,12 @@ import pytest
 import torch
 
 import chip_smoke
-from tpuslam.sim import SimConfig, simulate, skidpad
 from tpuslam_torch.backend.graph import GraphCapacity
 from tpuslam_torch.frontend.pipeline import run_pass
 from tpuslam_torch.ops import assoc_kernel as A
 from tpuslam_torch.ops import cholesky as C
 from tpuslam_torch.runtime.config import SlamConfig
+from tpuslam_torch.sim import SimConfig, simulate, skidpad
 
 pytestmark = pytest.mark.cuda
 
@@ -53,7 +53,7 @@ def test_assoc_kernel_rejects_bad_inputs(cuda):
         A.associate_kernel(oxy, ot, lxy.cpu(), lt, 1.44)
 
 
-@pytest.mark.parametrize("n", [1, 63, 64, 65, 200, 768, 1536])
+@pytest.mark.parametrize("n", [1, 31, 32, 33, 63, 64, 65, 200, 384, 768, 1152, 1536])
 def test_cholesky_kernel_matches_plain(cuda, n):
     a = chip_smoke.spd(n)
     before = C.launches
@@ -62,6 +62,40 @@ def test_cholesky_kernel_matches_plain(cuda, n):
     torch.testing.assert_close(got, C.cholesky_plain(a), atol=5e-4, rtol=1e-3)
     assert float((got @ got.T - a).abs().max()) <= 5e-3
     assert torch.equal(torch.triu(got, 1), torch.zeros_like(got))
+
+
+def test_cholesky_kernel_clamps_nonpositive_pivots(cuda):
+    """A non-positive pivot is clamped (rsqrt(max(pivot, 1e-30))) as the twin
+    clamps it, instead of stopping the factorization."""
+    a = chip_smoke.spd(80)
+    a[70, 70] = -1.0
+    got, want = C.cholesky_kernel(a).cpu(), C.cholesky_plain(a).cpu()
+    assert got[70, 70] < 0 and torch.isfinite(got[:71, :71]).all()
+    torch.testing.assert_close(got[:71, :71], want[:71, :71], atol=5e-4, rtol=1e-3)
+
+
+def test_cholesky_kernel_repeats_bit_for_bit(cuda):
+    """Blocks claim tiles in another order every run; the factor must not
+    change by a bit (a missed cross-block ordering shows up here)."""
+    a = chip_smoke.spd(chip_smoke.CLOSURE_N)
+    first = C.cholesky_kernel(a)
+    for _ in range(49):
+        assert torch.equal(C.cholesky_kernel(a), first)
+
+
+def test_cholesky_kernel_is_one_launch(cuda):
+    from torch.profiler import ProfilerActivity, profile
+    a = chip_smoke.spd(chip_smoke.CLOSURE_N)
+    C.cholesky_kernel(a)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(3):
+            C.cholesky_kernel(a)
+        torch.cuda.synchronize()
+    kernels = {e.key: e.count for e in prof.key_averages() if e.device_type.name == "CUDA"
+               and not e.key.startswith(("Memcpy", "Memset"))}
+    assert sum(kernels.values()) == 3, kernels
+    assert all("persistent_cholesky" in k for k in kernels), kernels
 
 
 def test_cholesky_kernel_rejects_bad_inputs(cuda):

@@ -1,6 +1,7 @@
-"""The port and its GPU driver import without JAX: in a fresh interpreter
-with `jax` made unimportable, every module of `tpuslam_torch` and
-`chip_smoke` import, and no JAX-backed `tpuslam` module is pulled in."""
+"""The port and its GPU smoke script import without JAX and without the JAX
+package: in a fresh interpreter with both `jax` and `tpuslam` made
+unimportable, every module of `tpuslam_torch`, `chip_smoke` and the GPU
+tests `tests/test_torch_cuda.py` import."""
 import subprocess
 import sys
 from pathlib import Path
@@ -10,17 +11,18 @@ REPO = Path(__file__).resolve().parents[1]
 _PROBE = """
 import importlib, pkgutil, sys
 for name in list(sys.modules):           # a sitecustomize may have imported it
-    if name.split(".")[0] in ("jax", "jaxlib"):
+    if name.split(".")[0] in ("jax", "jaxlib", "tpuslam"):
         del sys.modules[name]
-sys.modules["jax"] = None
+sys.modules["jax"] = sys.modules["tpuslam"] = None
 import tpuslam_torch
 for mod in pkgutil.walk_packages(tpuslam_torch.__path__, "tpuslam_torch."):
     importlib.import_module(mod.name)
 import chip_smoke
-loaded = sorted(m for m in sys.modules if m.startswith("tpuslam.")
-                and m.split(".")[1] not in ("compat", "sim"))
+sys.path.insert(0, "tests")
+import test_torch_cuda
+loaded = sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib", "tpuslam")
+                and sys.modules[m] is not None)
 assert not loaded, loaded
-assert sys.modules["jax"] is None
 print("ok")
 """
 

@@ -26,7 +26,7 @@ from dataclasses import dataclass
 
 import torch
 
-from tpuslam import compat
+from tpuslam_torch import compat
 from tpuslam_torch.backend.graph import FactorGraph
 from tpuslam_torch.backend.residuals import landmark_residuals, odometry_residuals
 from tpuslam_torch.geometry import se2

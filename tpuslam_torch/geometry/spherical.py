@@ -1,13 +1,13 @@
 """Sensor-frame spherical -> Cartesian cone observation model (counterpart of
 `tpuslam.geometry.spherical`). Angles come in DEGREES; `ref_constants`
-switches to the reference's quirky DEG2RAD/PI constants (`tpuslam.compat`)."""
+switches to the reference's quirky DEG2RAD/PI constants (`tpuslam_torch.compat`)."""
 from __future__ import annotations
 
 import math
 
 import torch
 
-from tpuslam import compat
+from tpuslam_torch import compat
 
 __all__ = [
     "lidar_to_cog", "spherical_to_cartesian", "cone_to_global", "cones_to_global",

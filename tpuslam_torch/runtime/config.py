@@ -9,7 +9,7 @@ from __future__ import annotations
 
 from dataclasses import dataclass, field, replace
 
-from tpuslam import compat
+from tpuslam_torch import compat
 from tpuslam_torch.backend.graph import GraphCapacity
 
 
