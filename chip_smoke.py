@@ -1,11 +1,18 @@
 #!/usr/bin/env python3
 """Drive the PyTorch/CUDA port (`tpuslam_torch`) once on one GPU.
 
-    python3 chip_smoke.py
+    python3 chip_smoke.py                  # every phase
+    python3 chip_smoke.py --assoc-plans    # phase 1, then the association
+                                           # kernel's cluster sizes timed
+                                           # (ASSOC_PLANS) and its wrapper's
+                                           # host cost by piece
 
 Phases, in order; the first that fails ends the run with exit code 1:
   1. build   — compile both CUDA kernels with nvcc (sm_90a), in parallel;
-  2. kernels — each kernel against its plain PyTorch twin on the card;
+  2. kernels — each kernel against its plain PyTorch twin on the card: the
+               association kernel bit-equal at ASSOC_CHECKS (the lap,
+               blocked and pod shapes, ragged sizes, ties) and in its
+               masked form;
   3. compat  — the per-frame engine (`run_pass`) in the reference-compat
                configuration ('first' association, plain PyTorch) on the
                trackdrive bench scenario, held to the JAX package's numbers;
@@ -16,10 +23,12 @@ Phases, in order; the first that fails ends the run with exit code 1:
                solves, through the Cholesky kernel and through
                `torch.linalg.cholesky_ex`, and the kernel's factor of the
                solve's ill-conditioned matrix held to a float64 factor;
-  6. timing  — frames/s of phases 3 and 4; each kernel's time per wrapper
-               call beside its twin's and the library call's (CUDA events,
-               in turns), its device time per launch (torch.profiler) and
-               its bound from this run's shapes.
+  6. timing  — frames/s of phases 3 and 4 and their kernel launches per
+               keyframe; each kernel's time per wrapper call beside its
+               twin's and the library call's (CUDA events, in turns), its
+               device time per launch (torch.profiler) and its bound from
+               this run's shapes, the association kernel at each of
+               ASSOC_SHAPES.
 It prints a `{"kernels": [...]}` line, the card's name and power limit as
 nvidia-smi gives them, and last `{"ok": true, "device": {...}}`. Without a
 CUDA device it fails before any phase. It imports no JAX.
@@ -29,6 +38,7 @@ from __future__ import annotations
 import dataclasses
 import functools
 import json
+import statistics
 import subprocess
 import sys
 import time
@@ -71,7 +81,13 @@ LAPS_TIMED = 5              # the lap rate is the median of this many laps (host
 # H100 SXM peaks for the bound (NVIDIA's data sheet, at 700 W): FP32 outside
 # the tensor cores, and HBM3
 PEAK_FP32_FLOP_S, PEAK_HBM_BYTE_S = 67e12, 3.35e12
-ASSOC_FLOP_PER_PAIR = 5     # Euclidean cost: 2 sub, 2 mul, 1 add (csrc/assoc.cu)
+# (N observations, M landmarks) of the association kernel: the per-frame lap
+# (the observation and landmark capacities), the blocked pipeline's launch
+# (tpuslam/frontend/blocked.py:495-499, block 32 x 64 observations) and the
+# pod-scale map the TPU kernel was built for (scripts/exp_block_provider.py:104-110)
+ASSOC_SHAPES = {"lap": (64, 256), "blocked": (2048, 256), "pod": (512, 4096)}
+# the cluster sizes `--assoc-plans` times at each shape
+ASSOC_PLANS = (1, 2, 4, 8)
 
 
 def configs():
@@ -120,9 +136,14 @@ def inputs(scen, device):
             torch.tensor(scen.odom_poses, dtype=torch.float32, device=device))
 
 
-def assoc_world(n, m, seed):
+def assoc_world(n, m, seed, device="cuda", ties=False):
     """Inputs made as tests/test_pallas_kernels.py makes them, with random
-    SPD inverse covariances packed (a, b, c)."""
+    SPD inverse covariances packed (a, b, c). With `ties`, half the
+    landmarks (xy, type and covariance) are copied to the indices of the
+    other half, paired at random so that a pair's two indices fall in
+    different chunks and cluster ranks, and the first half of the
+    observations lie near copied landmarks: each of those sees two landmarks
+    at exactly the same cost."""
     rng = np.random.default_rng(seed)
     lm_xy = rng.uniform(-50, 50, (m, 2)).astype(np.float32)
     lm_type = rng.integers(1, 5, m).astype(np.int32)
@@ -135,7 +156,101 @@ def assoc_world(n, m, seed):
     rho = rng.uniform(-0.3, 0.3, m)
     a = 1.0 / sig ** 2
     cov = np.stack([a, rho * a, a * (1 + rho ** 2)], axis=1).astype(np.float32)
-    return [torch.tensor(x, device="cuda") for x in (obs_xy, obs_type, lm_xy, lm_type, cov)]
+    if ties:
+        src, dst = tie_pairs(m, seed)
+        for x in (lm_xy, lm_type, cov):
+            x[dst] = x[src]
+        k = min(n // 2, len(src))
+        near = np.random.default_rng(seed + 1).normal(0, 0.3, (k, 2))
+        obs_xy[:k] = (lm_xy[src[:k]] + near).astype(np.float32)
+        obs_type[:k] = lm_type[src[:k]]
+    return [torch.tensor(x, device=device) for x in (obs_xy, obs_type, lm_xy, lm_type, cov)]
+
+
+def tie_pairs(m, seed):
+    """(src, dst): the landmark indices `assoc_world(..., ties=True)` copies
+    from and to."""
+    perm = np.random.default_rng(seed + 2).permutation(m)
+    return perm[:m // 2], perm[m // 2:2 * (m // 2)]
+
+
+# (N, M, seed, ties) at which phase 2 and tests/test_torch_cuda.py hold the
+# association kernel to its twin, Euclidean and Mahalanobis: the three shapes,
+# the multi-tile case of tests/test_pallas_kernels.py, ragged sizes, and ties
+# across chunks and ranks
+ASSOC_CHECKS = ([(n, m, 0, False) for n, m in ASSOC_SHAPES.values()] + [(61, 2000, 5, False)]
+                + [(n, m, 1, False) for n in (1, 129, 2049) for m in (0, 1, 4097)]
+                + [(64, 256, 3, True), (2048, 256, 3, True), (512, 4096, 4, True)])
+
+
+def assoc_flop(n, m, mahalanobis):
+    """FP32 operations of the association cost (csrc/assoc.cu) for n
+    observations and m landmarks: per pair, Euclidean 2 sub, 2 mul, 1 add;
+    Mahalanobis 2 sub, 6 mul, 2 add, and 2b once per landmark."""
+    return 10 * n * m + m if mahalanobis else 5 * n * m
+
+
+def assoc_check(n, m, seed, ties, mahalanobis):
+    """The association kernel against its twin on `assoc_world`, cut to m
+    landmarks. Raises unless idx, matched and cost are bit-equal and, with
+    `ties`, unless some observations met a tie and every one went to the
+    lower index. Returns (observations matched, ties met, max |cost -
+    twin's cost|)."""
+    oxy, ot, lxy, lt, cov = assoc_world(n, max(m, 1), seed, ties=ties)
+    lxy, lt, cov = (x[:m].contiguous() for x in (lxy, lt, cov))
+    gate2 = 9.21 if mahalanobis else 1.44
+    got = A.associate_kernel(oxy, ot, lxy, lt, gate2, cov, mahalanobis=mahalanobis)
+    want = A.associate_plain(oxy, ot, lxy, lt, gate2, cov, mahalanobis=mahalanobis)
+    what = f"assoc N={n} M={m} ties={ties} mahalanobis={mahalanobis}"
+    for g, w, name in zip(got, want, ("idx", "matched", "cost")):
+        if not torch.equal(g, w):
+            raise AssertionError(f"{what}: {name} differs from the plain twin")
+    met = 0
+    if ties:
+        met = tie_check(got[0].cpu().numpy()[got[1].cpu().numpy()], m, seed, what)
+    return int(got[1].sum()), met, float((got[2] - want[2]).abs().max())
+
+
+def tie_check(idx, m, seed, what):
+    """The number of matched indices `idx` that have a copy in
+    `tie_pairs(m, seed)`; raises if there are none or a higher copy won."""
+    src, dst = tie_pairs(m, seed)
+    partner = np.full(m, -1)
+    partner[src], partner[dst] = dst, src
+    tied = partner[idx] >= 0
+    if not tied.any() or (idx[tied] > partner[idx[tied]]).any():
+        raise AssertionError(f"{what}: {int(tied.sum())} ties, not all won by the lower index")
+    return int(tied.sum())
+
+
+def assoc_masked_world(seed, device="cuda"):
+    """A keyframe's association inputs at the lap shape as
+    `_provider_associate` gets them: observation xy, the [N, 4] rows (type in
+    the float column 3), the validity mask, the landmark store and its fill
+    count (150 of 256)."""
+    n, m = ASSOC_SHAPES["lap"]
+    oxy, ot, lxy, lt, _ = assoc_world(n, m, seed, device)
+    rows = torch.zeros(n, 4, device=device)
+    rows[:, 3] = ot.float()
+    valid = torch.tensor(np.random.default_rng(seed).random(n) < 0.8, device=device)
+    return oxy, rows, valid, lxy, lt, torch.tensor(150, dtype=torch.int32, device=device)
+
+
+def assoc_masked_check(seed, device="cuda"):
+    """The masked form (obs_valid, lm_count, the float type column) against
+    its twin and against the unmasked form with invalid observations typed
+    -2 and landmarks past the count typed -1: raises unless all three are
+    bit-equal. Returns (observations matched, max |cost - twin's cost|)."""
+    oxy, rows, valid, lxy, lt, count = assoc_masked_world(seed, device)
+    masked = A.associate_kernel(oxy, rows[:, 3], lxy, lt, 1.44, obs_valid=valid, lm_count=count)
+    twin = A.associate_plain(oxy, rows[:, 3], lxy, lt, 1.44, obs_valid=valid, lm_count=count)
+    otype = torch.where(valid, rows[:, 3].to(torch.int32), -2)
+    lt_eff = torch.where(torch.arange(len(lt), device=device) < count, lt, -1).to(torch.int32)
+    typed = A.associate_kernel(oxy, otype, lxy, lt_eff, 1.44)
+    for a, b, c, name in zip(masked, twin, typed, ("idx", "matched", "cost")):
+        if not (torch.equal(a, b) and torch.equal(a, c)):
+            raise AssertionError(f"assoc masked seed={seed}: {name} differs")
+    return int(masked[1].sum()), float((masked[2] - twin[2]).abs().max())
 
 
 def spd(n, seed=None):
@@ -199,19 +314,18 @@ class Smoke:
     def kernels_vs_plain(self):
         A.launches = C.launches = 0
         err = 0.0
-        for n, m, seed in ((64, 256, 0), (61, 2000, 5)):
+        for n, m, seed, ties in ASSOC_CHECKS:
             for mahal in (False, True):
-                oxy, ot, lxy, lt, cov = assoc_world(n, m, seed)
-                gate2 = 9.21 if mahal else 1.44
-                got = A.associate_kernel(oxy, ot, lxy, lt, gate2, cov, mahalanobis=mahal)
-                want = A.associate_plain(oxy, ot, lxy, lt, gate2, cov, mahalanobis=mahal)
-                for g_, w_, what in zip(got, want, ("idx", "matched", "cost")):
-                    if not torch.equal(g_, w_):
-                        raise AssertionError(f"assoc N={n} M={m} mahalanobis={mahal}: "
-                                             f"{what} differs from the plain twin")
-                err = max(err, float((got[2] - want[2]).abs().max()))
-                self.log(f"kernels: assoc N={n} M={m} mahalanobis={mahal}: bit-equal to "
-                         f"the plain twin ({int(got[1].sum())} matched)")
+                matched, met, e = assoc_check(n, m, seed, ties, mahal)
+                err = max(err, e)
+                self.log(f"kernels: assoc N={n} M={m} ties={ties} mahalanobis={mahal}: "
+                         f"bit-equal to the plain twin ({matched} matched"
+                         + (f", {met} ties to the lower index)" if ties else ")"))
+        for seed in (0, 1):
+            matched, e = assoc_masked_check(seed)
+            err = max(err, e)
+            self.log(f"kernels: assoc masked seed={seed}: bit-equal to the twin and to the "
+                     f"-2/-1 typed form ({matched} matched)")
         self.kernels["assoc"]["max_abs_err"] = err
         err = 0.0
         for n in (200, 384, 768, 1536):
@@ -361,17 +475,7 @@ class Smoke:
             self.log(f"timing: {name} lap: median {ms:.1f} ms of {LAPS_TIMED} laps "
                      f"(min {laps[0]:.1f}, max {laps[-1]:.1f}) for {t} frames = "
                      f"{t / ms * 1e3:.1f} frames/s [{self.card}]")
-        n_obs, n_lm = 64, 256     # the lap's shape: the observation and landmark capacities
-        oxy, ot, lxy, lt, _ = assoc_world(n_obs, n_lm, 0)
-        k = self.kernels["assoc"]
-        run = functools.partial(A.associate_kernel, oxy, ot, lxy, lt, 1.44)
-        k["ms"] = cuda_ms(run, reps=200)
-        k["plain_ms"] = cuda_ms(lambda: A.associate_plain(oxy, ot, lxy, lt, 1.44), reps=200)
-        k["library_ms"] = None    # no single PyTorch call computes it
-        k["device_ms"] = self.device_ms("assoc", "assoc_kernel", run, reps=50)
-        nbytes = sum(x.numel() * x.element_size() for x in (oxy, ot, lxy, lt, *run()))
-        k["bound_ms"], k["bound_by"] = bound(ASSOC_FLOP_PER_PAIR * n_obs * n_lm, nbytes)
-
+        self.assoc_timing()
         s = self.closure_s
         n = s.shape[0]
         k = self.kernels["cholesky"]
@@ -392,11 +496,110 @@ class Smoke:
                  f"torch.linalg.cholesky_ex {turns[0] * 1e3:.1f} / {turns[3] * 1e3:.1f} us "
                  f"(in turns: library, kernel, kernel, library) [{self.card}]")
 
-    def device_ms(self, name: str, symbol: str, fn, reps: int) -> float:
+    def assoc_timing(self):
+        """The association kernel at each of ASSOC_SHAPES, Euclidean and
+        Mahalanobis: time per wrapper call (CUDA events over 100 back-to-back
+        calls, median of 5 such runs: the host is noisy), device time per
+        launch (profiler), the plain twin's time and the bound. The lap's
+        Euclidean shape fills the `kernels` line."""
+        k = self.kernels["assoc"]
+        k["library_ms"] = None    # no single PyTorch call computes it
+        k["shapes"] = {}
+        for shape, (n, m) in ASSOC_SHAPES.items():
+            for mahal in (False, True):
+                oxy, ot, lxy, lt, cov = assoc_world(n, m, 0)
+                gate2 = 9.21 if mahal else 1.44
+                run = functools.partial(A.associate_kernel, oxy, ot, lxy, lt, gate2, cov,
+                                        mahalanobis=mahal)
+                ins = (oxy, ot, lxy, lt, cov) if mahal else (oxy, ot, lxy, lt)
+                nbytes = sum(x.numel() * x.element_size() for x in (*ins, *run()))
+                r = dict(ms=statistics.median(cuda_ms(run, reps=100) for _ in range(5)),
+                         device_ms=self.device_ms("assoc", "assoc_kernel", run, reps=50),
+                         plain_ms=cuda_ms(functools.partial(
+                             A.associate_plain, oxy, ot, lxy, lt, gate2, cov,
+                             mahalanobis=mahal), reps=50))
+                r["bound_ms"], r["bound_by"] = bound(assoc_flop(n, m, mahal), nbytes)
+                key = f"{shape}{'_mahalanobis' if mahal else ''}"
+                k["shapes"][key] = r
+                self.log(f"timing: assoc {key} N={n} M={m}: per wrapper call "
+                         f"{r['ms'] * 1e3:.2f} us, device {r['device_ms'] * 1e3:.2f} us per "
+                         f"launch, plain twin {r['plain_ms'] * 1e3:.1f} us, bound "
+                         f"{r['bound_ms'] * 1e3:.4g} us ({r['bound_by']}) [{self.card}]")
+        k.update({f: k["shapes"]["lap"][f]
+                  for f in ("ms", "device_ms", "plain_ms", "bound_ms", "bound_by")})
+
+    def assoc_plans(self):
+        """`--assoc-plans`: the association kernel's device time per launch
+        (profiler) at each of ASSOC_SHAPES for every cluster size of
+        ASSOC_PLANS, the one `_plan` picks marked; each result is held to the
+        twin."""
+        plan = A._plan
+        try:
+            for shape, (n, m) in ASSOC_SHAPES.items():
+                picked = plan(n, m, A._sms(0))
+                oxy, ot, lxy, lt, cov = assoc_world(n, m, 0)
+                for mahal in (False, True):
+                    gate2 = 9.21 if mahal else 1.44
+                    want = A.associate_plain(oxy, ot, lxy, lt, gate2, cov, mahalanobis=mahal)
+                    times = []
+                    for p in ASSOC_PLANS:
+                        A._plan = lambda *_, p=p: p
+                        run = functools.partial(A.associate_kernel, oxy, ot, lxy, lt, gate2, cov,
+                                                mahalanobis=mahal)
+                        if not all(torch.equal(g, w) for g, w in zip(run(), want)):
+                            raise AssertionError(f"assoc plan {p} at {shape}: differs from twin")
+                        us = self.device_ms("assoc", "assoc_kernel", run, reps=20, rows=False) * 1e3
+                        times.append(f"{p}{'*' if p == picked else ''} {us:.2f}")
+                    self.log(f"plans: assoc {shape}{' mahalanobis' if mahal else ''} N={n} M={m}"
+                             f": device us per launch by cluster size: " + ", ".join(times)
+                             + f" [{self.card}]")
+        finally:
+            A._plan = plan
+
+    def assoc_host(self):
+        """`--assoc-plans`: host time per call of the association wrapper at
+        the lap shape and of the pieces it is made of (host clock over many
+        calls; the kernel is shorter than the wrapper, so the device never
+        holds the host back)."""
+        n, m = ASSOC_SHAPES["lap"]
+        oxy, ot, lxy, lt, _ = assoc_world(n, m, 0)
+        rows, valid, _, _, count = assoc_masked_world(0)[1:]
+        dev = oxy.device
+
+        def three():
+            return (torch.empty(n, dtype=torch.int32, device=dev),
+                    torch.empty(n, dtype=torch.float32, device=dev),
+                    torch.empty(n, dtype=torch.bool, device=dev))
+
+        pieces = {
+            "wrapper": functools.partial(A.associate_kernel, oxy, ot, lxy, lt, 1.44),
+            "wrapper, masked form": functools.partial(
+                A.associate_kernel, oxy, rows[:, 3], lxy, lt, 1.44, obs_valid=valid,
+                lm_count=count),
+            "three torch.empty": three,
+            "torch.cuda.current_stream(dev).cuda_stream":
+                lambda: torch.cuda.current_stream(dev).cuda_stream,
+            "the C entry through ctypes, N = 0 (returns before any launch)":
+                functools.partial(A._load().tpuslam_assoc, *[0] * 9, 0, m, 1.44,
+                                  0, 1, *[0] * 4),
+        }
+        for name, fn in pieces.items():
+            runs = []
+            for _ in range(6):    # the first run warms up
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                for _ in range(1000):
+                    fn()
+                runs.append((time.perf_counter() - t0) / 1000 * 1e6)
+            torch.cuda.synchronize()
+            self.log(f"host: {name}: {statistics.median(runs[1:]):.2f} us per call (host "
+                     f"clock, median of 5 x 1000 calls; min {min(runs[1:]):.2f}) [{self.card}]")
+
+    def device_ms(self, name: str, symbol: str, fn, reps: int, rows: bool = True) -> float:
         """Device time per launch of kernel `name` (the `__global__` function
         `symbol`), from torch.profiler over `reps` calls of its wrapper `fn`.
-        Logs every device row and fails unless each call launched the
-        kernel exactly once."""
+        Logs every device row (unless not `rows`) and fails unless each call
+        launched the kernel exactly once."""
         from torch.profiler import ProfilerActivity, profile
         fn()
         torch.cuda.synchronize()
@@ -404,11 +607,11 @@ class Smoke:
             for _ in range(reps):
                 fn()
             torch.cuda.synchronize()
-        rows = [e for e in prof.key_averages() if e.device_type.name == "CUDA"]
-        for e in rows:
+        found = [e for e in prof.key_averages() if e.device_type.name == "CUDA"]
+        for e in found if rows else ():
             self.log(f"timing: {name} device row {e.key[:70]!r}: {e.count / reps:g} per call, "
                      f"{e.self_device_time_total / e.count:.2f} us each [{self.card}]")
-        kernel = [e for e in rows if symbol in e.key]
+        kernel = [e for e in found if symbol in e.key]
         if [e.count for e in kernel] != [reps]:
             raise AssertionError(f"{name}: want one kernel launch per call, profiler rows "
                                  f"{[(e.key, e.count) for e in kernel]}")
@@ -448,8 +651,14 @@ def main() -> int:
         print("chip_smoke: TF32 could not be switched off", file=sys.stderr)
         return 1
     smoke = Smoke()
-    for phase in (smoke.build, smoke.kernels_vs_plain, smoke.compat,
-                  smoke.kernel_association, smoke.closure_solve, smoke.timing):
+    phases = (smoke.build, smoke.kernels_vs_plain, smoke.compat,
+              smoke.kernel_association, smoke.closure_solve, smoke.timing)
+    if sys.argv[1:] == ["--assoc-plans"]:
+        phases = (smoke.build, smoke.assoc_plans, smoke.assoc_host)
+    elif sys.argv[1:]:
+        print(f"usage: {sys.argv[0]} [--assoc-plans]", file=sys.stderr)
+        return 2
+    for phase in phases:
         t0 = time.perf_counter()
         try:
             phase()

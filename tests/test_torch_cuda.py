@@ -27,22 +27,64 @@ def cuda():
     return torch.device("cuda")
 
 
-@pytest.mark.parametrize("n,m,seed", [(37, 300, 0), (64, 256, 1), (61, 2000, 5), (5, 0, 2)])
+@pytest.mark.parametrize("n,m,seed,ties", [(37, 300, 0, False), (5, 0, 2, False)]
+                         + chip_smoke.ASSOC_CHECKS)
 @pytest.mark.parametrize("mahalanobis", [False, True])
-def test_assoc_kernel_bit_equal_to_plain(cuda, n, m, seed, mahalanobis):
-    oxy, ot, lxy, lt, cov = chip_smoke.assoc_world(n, max(m, 1), seed)
-    lxy, lt, cov = lxy[:m].contiguous(), lt[:m].contiguous(), cov[:m].contiguous()
-    gate2 = 9.21 if mahalanobis else 1.44
+def test_assoc_kernel_bit_equal_to_plain(cuda, n, m, seed, ties, mahalanobis):
+    """Bit-equal to the twin at the lap, blocked and pod shapes, ragged N and
+    M, and with ties across chunks and cluster ranks (won by the lower
+    index); one launch per call."""
     before = A.launches
-    got = A.associate_kernel(oxy, ot, lxy, lt, gate2, cov, mahalanobis=mahalanobis)
-    want = A.associate_plain(oxy, ot, lxy, lt, gate2, cov, mahalanobis=mahalanobis)
+    err = chip_smoke.assoc_check(n, m, seed, ties, mahalanobis)[2]
     assert A.launches == before + 1
-    for g, w in zip(got, want):
-        assert torch.equal(g, w)
+    assert err == 0.0
+
+
+@pytest.mark.parametrize("seed", [0, 1, 2])
+def test_assoc_kernel_masks(cuda, seed):
+    matched, err = chip_smoke.assoc_masked_check(seed)
+    assert matched > 0 and err == 0.0
+
+
+def test_assoc_kernel_is_one_launch(cuda):
+    """Exactly one kernel launch per call, whatever the plan, and none (nor a
+    count) for N = 0."""
+    from torch.profiler import ProfilerActivity, profile
+    worlds = [chip_smoke.assoc_world(n, m, 0) for n, m in chip_smoke.ASSOC_SHAPES.values()]
+    for w in worlds:
+        A.associate_kernel(*w[:4], 1.44)
+    torch.cuda.synchronize()
+    before = A.launches
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for w in worlds:
+            A.associate_kernel(*w[:4], 1.44)
+            A.associate_kernel(*w[:4], 9.21, w[4], mahalanobis=True)
+        oxy, ot, lxy, lt, _ = worlds[0]
+        empty = A.associate_kernel(oxy[:0], ot[:0], lxy, lt, 1.44)
+        torch.cuda.synchronize()
+    assert A.launches == before + 2 * len(worlds)
+    assert [t.shape for t in empty] == [(0,)] * 3
+    kernels = {e.key: e.count for e in prof.key_averages() if e.device_type.name == "CUDA"
+               and not e.key.startswith(("Memcpy", "Memset"))}
+    assert sum(kernels.values()) == 2 * len(worlds), kernels
+    assert all("assoc_kernel" in k for k in kernels), kernels
+
+
+def test_assoc_kernel_repeats_bit_for_bit(cuda):
+    """The cluster's ranks finish in any order; 50 runs with ties give the
+    same bits."""
+    oxy, ot, lxy, lt, cov = chip_smoke.assoc_world(512, 4096, 4, ties=True)
+    for mahalanobis in (False, True):
+        first = A.associate_kernel(oxy, ot, lxy, lt, 9.21, cov, mahalanobis=mahalanobis)
+        for _ in range(49):
+            got = A.associate_kernel(oxy, ot, lxy, lt, 9.21, cov, mahalanobis=mahalanobis)
+            assert all(torch.equal(g, f) for g, f in zip(got, first))
 
 
 def test_assoc_kernel_rejects_bad_inputs(cuda):
-    oxy, ot, lxy, lt, _ = chip_smoke.assoc_world(8, 16, 0)
+    oxy, ot, lxy, lt, cov = chip_smoke.assoc_world(8, 16, 0)
+    valid = torch.ones(8, dtype=torch.bool, device=cuda)
+    count = torch.tensor(5, dtype=torch.int32, device=cuda)
     with pytest.raises(ValueError):
         A.associate_kernel(oxy.double(), ot, lxy, lt, 1.44)
     with pytest.raises(ValueError):
@@ -51,6 +93,18 @@ def test_assoc_kernel_rejects_bad_inputs(cuda):
         A.associate_kernel(oxy, ot, lxy.t().contiguous().t(), lt, 1.44)
     with pytest.raises(ValueError):
         A.associate_kernel(oxy, ot, lxy.cpu(), lt, 1.44)
+    with pytest.raises(ValueError):
+        A.associate_kernel(oxy, ot, lxy, lt, 9.21, cov[:, :2].contiguous(), mahalanobis=True)
+    with pytest.raises(ValueError):
+        A.associate_kernel(oxy, ot, lxy, lt, 1.44, obs_valid=valid.int())
+    with pytest.raises(ValueError):
+        A.associate_kernel(oxy, ot, lxy, lt, 1.44, obs_valid=valid[:7])
+    with pytest.raises(ValueError):
+        A.associate_kernel(oxy, ot, lxy, lt, 1.44, lm_count=count.long())
+    with pytest.raises(ValueError):
+        A.associate_kernel(oxy, ot, lxy, lt, 1.44, lm_count=count.cpu())
+    with pytest.raises(ValueError):
+        A.associate_kernel(oxy, torch.stack([ot, ot], 1)[:, 0], lxy, lt, 1.44)  # strided int32
 
 
 @pytest.mark.parametrize("n", [1, 31, 32, 33, 63, 64, 65, 200, 384, 768, 1152, 1536])

@@ -7,12 +7,15 @@ import numpy as np
 import pytest
 import torch
 
+import chip_smoke
 from tests.test_pallas_kernels import _world
+from tpuslam.frontend.keyframe import _provider_associate as jax_provider_associate
 from tpuslam.ops.association import associate as jax_associate
 from tpuslam.ops.cholesky import cholesky_pallas
 from tpuslam.ops.pallas_assoc import associate_pallas
+from tpuslam.runtime.config import SlamConfig as JaxSlamConfig
 from tpuslam_torch.backend.graph import GraphCapacity
-from tpuslam_torch.frontend.keyframe import perform_keyframe
+from tpuslam_torch.frontend.keyframe import _provider_associate, perform_keyframe
 from tpuslam_torch.frontend.state import initial_state
 from tpuslam_torch.ops import assoc_kernel as A
 from tpuslam_torch.ops import cholesky as C
@@ -28,19 +31,38 @@ def _cov(m, seed=3):
     return np.stack([a, rho * a, a * (1 + rho ** 2)], axis=1).astype(np.float32)
 
 
-# the three cases of tests/test_pallas_kernels.py:26-83
+# the three cases of tests/test_pallas_kernels.py:26-83, then the shapes of
+# chip_smoke.ASSOC_SHAPES and the edge cases of chip_smoke.py phase 2, with
+# inputs from chip_smoke.assoc_world ("smoke"); "m" keeps the first m landmarks
 ASSOC_CASES = {
     "euclidean": dict(world=dict(), gate2=1.44, mahalanobis=False),
     "mahalanobis": dict(world=dict(seed=2), gate2=9.21, mahalanobis=True),
     "multi_tile": dict(world=dict(n=61, m=2000, seed=5), gate2=1.44, mahalanobis=False),
+    "blocked": dict(smoke=dict(n=2048, m=256, seed=6), gate2=1.44, mahalanobis=False),
+    "pod": dict(smoke=dict(n=512, m=4096, seed=7), gate2=1.44, mahalanobis=False),
+    "pod_mahalanobis": dict(smoke=dict(n=512, m=4096, seed=8), gate2=9.21, mahalanobis=True),
+    "ties": dict(smoke=dict(n=512, m=4096, seed=9, ties=True), gate2=1.44, mahalanobis=False),
+    "ties_mahalanobis": dict(smoke=dict(n=64, m=300, seed=10, ties=True), gate2=9.21,
+                             mahalanobis=True),
+    "no_landmarks": dict(world=dict(), m=0, gate2=1.44, mahalanobis=False),
 }
+
+
+def _assoc_inputs(c):
+    if "smoke" in c:
+        obs_xy, obs_type, lm_xy, lm_type, cov = (
+            t.numpy() for t in chip_smoke.assoc_world(**c["smoke"], device="cpu"))
+    else:
+        obs_xy, obs_type, lm_xy, lm_type = _world(**c["world"])
+        cov = _cov(len(lm_xy))
+    m = c.get("m", len(lm_xy))
+    return obs_xy, obs_type, lm_xy[:m], lm_type[:m], cov[:m]
 
 
 @pytest.mark.parametrize("case", list(ASSOC_CASES))
 def test_associate_plain_matches_pallas(case):
     c = ASSOC_CASES[case]
-    obs_xy, obs_type, lm_xy, lm_type = _world(**c["world"])
-    cov = _cov(len(lm_xy))
+    obs_xy, obs_type, lm_xy, lm_type, cov = _assoc_inputs(c)
     want = associate_pallas(jnp.asarray(obs_xy), jnp.asarray(obs_type), jnp.asarray(lm_xy),
                             jnp.asarray(lm_type), c["gate2"],
                             lm_cov_inv_packed=jnp.asarray(cov) if c["mahalanobis"] else None,
@@ -54,8 +76,51 @@ def test_associate_plain_matches_pallas(case):
     assert got[0].dtype == torch.int32 and got[1].dtype == torch.bool
     np.testing.assert_array_equal(got[0].numpy(), np.asarray(want[0]))
     np.testing.assert_array_equal(got[1].numpy(), np.asarray(want[1]))
-    assert got[1].any()
+    assert got[1].any() == (len(lm_xy) > 0)
     np.testing.assert_allclose(got[2].numpy(), np.asarray(want[2]), rtol=1e-5)
+    if "ties" in case:                # the tie cases do hold ties, won by the lower index
+        chip_smoke.tie_check(got[0].numpy()[got[1].numpy()], len(lm_xy), c["smoke"]["seed"], case)
+
+
+@pytest.mark.parametrize("seed", [11, 12])
+def test_provider_associate_masks_match_jax(seed):
+    """The port's `_provider_associate` hands the masks to the kernel's
+    wrapper; the JAX package's sets the types -2 and -1 instead. Both give
+    the same association."""
+    oxy, obs, valid, lxy, lt, n_lm = (
+        t.numpy() for t in chip_smoke.assoc_masked_world(seed, device="cpu"))
+    lm_valid = np.arange(len(lxy)) < n_lm
+    want = jax_provider_associate(jnp.asarray(oxy), jnp.asarray(obs[:, 3]).astype(jnp.int32),
+                                  jnp.asarray(valid), jnp.asarray(lxy), jnp.asarray(lt),
+                                  jnp.asarray(lm_valid), None,
+                                  JaxSlamConfig(association="nearest",
+                                                use_pallas_association=True))
+    cfg = SlamConfig(association="nearest", use_pallas_association=True)
+    obs_t = torch.tensor(obs)
+    got = _provider_associate(torch.tensor(oxy), obs_t[:, 3], torch.tensor(valid),
+                              torch.tensor(lxy), torch.tensor(lt),
+                              torch.tensor(n_lm), cfg)
+    np.testing.assert_array_equal(got[0].numpy(), np.asarray(want[0]))
+    np.testing.assert_array_equal(got[1].numpy(), np.asarray(want[1]))
+    assert got[1].any() and not got[1][~torch.tensor(valid)].any()
+    assert (got[0][got[1]] < int(n_lm)).all()
+    np.testing.assert_allclose(got[2].numpy(), np.asarray(want[2]), rtol=1e-5)
+
+
+def test_associate_masked_equals_type_sentinels():
+    """The masked form equals the unmasked form with the invalid
+    observations typed -2 and the landmarks past the count typed -1."""
+    matched, err = chip_smoke.assoc_masked_check(13, device="cpu")
+    assert matched > 0 and err == 0.0
+
+
+@pytest.mark.parametrize("n,m,sms,want", [
+    (64, 256, 132, 1), (2048, 256, 132, 1), (512, 4096, 132, 8), (64, 4097, 132, 8),
+    (64, 600, 132, 3), (512, 4096, 32, 2), (4096, 4096, 132, 1), (1, 0, 132, 1)])
+def test_assoc_plan_fills_one_wave(n, m, sms, want):
+    """The cluster spans the landmark chunks, at most 8 blocks, and no wider
+    than keeps the grid within one wave of the card's SMs."""
+    assert A._plan(n, m, sms) == want
 
 
 @pytest.mark.parametrize("mode,signed", [("first", False), ("nearest", False),

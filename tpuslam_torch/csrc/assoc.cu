@@ -7,114 +7,238 @@
 // with dx = ox - lx, dy = oy - ly; a landmark counts only when
 // type_obs == type_lm and cost < gate2. Outputs the lowest-index minimum
 // (idx, matched = cost < 1e30, cost); an unmatched observation gets idx 0 and
-// cost 1e30, as on the TPU.
+// cost 1e30, as on the TPU. Optional masks: an observation with
+// obs_valid[i] false, or a landmark at j >= *lm_count, never matches (the
+// TPU caller's types -2 and -1).
 //
-// What bounds it: at the per-frame shape (N = 64 observations, M = 256
-// landmarks) the whole problem is one block and 16k cost evaluations, so the
-// launch latency bounds it, not bytes or FLOPs. Larger maps are bound by the
-// FP32 issue rate of the cost loop (8 flops per pair, every landmark read
-// from shared memory as a broadcast).
-//
-// Design: one thread per observation, blocks of 128 observations. Each block
-// walks the landmarks in tiles of 256 staged through shared memory with
-// coalesced loads (xy as float2, type, and the packed covariance as a flat
-// run of 3*256 floats). Each thread keeps its running (min, argmin) in
-// registers and takes a candidate only on a strict '<', so the lowest
-// landmark index wins ties, as the TPU kernel's argmin-then-strict-'<' does.
-// Ragged N and M are masked here; no padding landmarks are needed.
+// What bounds it, on the H100 (67 TFLOP/s FP32, 3.35 TB/s): at the
+// per-frame shape (N = 64, M = 256) the 4.4 KB it must move take 1.3 ns, at
+// the blocked pipeline's (N = 2048, M = 256) and the pod-scale map's
+// (N = 512, M = 4096) the 5 flops per pair take 39 ns and 157 ns. All three
+// are far below a launch, so what bounds a call is latency: the length of
+// the longest thread's serial walk over landmarks, and the launch itself.
 // The cost is evaluated with __fmul_rn/__fadd_rn in the order of
 // pallas_assoc.py:53-55, so no FMA contraction changes a last bit: the
 // kernel agrees bit for bit with the plain PyTorch version (one op per
-// arithmetic step) and a gate decision cannot flip between the two.
+// arithmetic step) and a gate decision cannot flip between the two. Without
+// FMA the reachable FP32 rate is half the peak the bound assumes.
+//
+// Design: the N x M pairs are cut into tiles of 32 observations times
+// landmark chunks of 256. A block of 8 warps holds one tile, one
+// observation per lane, in every warp; it stages a chunk in shared memory,
+// one landmark per thread with coalesced loads (xy and type as one float4,
+// the covariance as (a, 2b, c)), issues the loads of its next chunk, and
+// walks the staged one: warp w takes landmarks w, w + 8, ... of it, so a
+// thread's walk is 32 long. The blocks of one tile form a thread-block
+// cluster of up to 8 along the landmark axis: rank r takes chunks r, r + C,
+// r + 2C, ... The running (cost, idx) of a thread takes a candidate on a
+// strict '<' in increasing index order; the 8 warps' partials are reduced in
+// shared memory and the ranks' through distributed shared memory by rank 0,
+// both by the lexicographic rule (smaller cost, then smaller index), which
+// gives the lowest index among equal minima in any order of combination.
+// One launch, no scratch, no atomics; invalid or ragged entries are staged as
+// NaN coordinates, whose cost fails the gate. The caller picks the cluster
+// size (ops/assoc_kernel.py:_plan): a cluster barrier costs
+// about as much as a 256-landmark walk, so only a map of more than one chunk
+// is split over a cluster, as wide as one wave of blocks allows.
+#include <cooperative_groups.h>
 #include <cuda_runtime.h>
+
+namespace cg = cooperative_groups;
 
 namespace {
 
-constexpr int kObsPerBlock = 128;
-constexpr int kLmTile = 256;
+constexpr int kWarps = 8;
+constexpr int kThreads = 32 * kWarps;
+constexpr int kChunk = kThreads;  // one staged landmark per thread
+constexpr int kMaxCluster = 8;
 constexpr float kBig = 1e30f;
 
-template <bool kMahalanobis>
-__global__ void assoc_kernel(const float2* __restrict__ obs_xy,
-                             const int* __restrict__ obs_type,
-                             const float2* __restrict__ lm_xy,
-                             const int* __restrict__ lm_type,
-                             const float* __restrict__ lm_cov, int n, int m,
-                             float gate2, int* __restrict__ idx_out,
-                             bool* __restrict__ matched_out,
-                             float* __restrict__ cost_out) {
-  __shared__ float2 s_xy[kLmTile];
-  __shared__ int s_type[kLmTile];
-  __shared__ float s_cov[kMahalanobis ? 3 * kLmTile : 1];
+__device__ __forceinline__ float nan_f() { return __int_as_float(0x7fffffff); }
 
-  const int i = blockIdx.x * kObsPerBlock + threadIdx.x;
-  const bool active = i < n;
-  float2 o = make_float2(0.f, 0.f);
+// (c, j) before (best, arg) in the lexicographic order
+__device__ __forceinline__ bool before(float c, int j, float best, int arg) {
+  return c < best || (c == best && j < arg);
+}
+
+template <bool kMahalanobis>
+__global__ void __launch_bounds__(kThreads)
+    assoc_kernel(const float2* __restrict__ obs_xy, const void* __restrict__ obs_type,
+                 long long obs_type_stride, int obs_type_float,
+                 const bool* __restrict__ obs_valid, const float2* __restrict__ lm_xy,
+                 const int* __restrict__ lm_type, const float* __restrict__ lm_cov,
+                 const int* __restrict__ lm_count, int n, int m, float gate2,
+                 int* __restrict__ idx_out, float* __restrict__ cost_out,
+                 bool* __restrict__ matched_out) {
+  __shared__ float4 s_lm[kThreads];                          // (x, y, type bits, -)
+  __shared__ float4 s_cov[kMahalanobis ? kThreads : 1];      // (a, 2b, c, -)
+  __shared__ float s_cost[kWarps][32];
+  __shared__ int s_idx[kWarps][32];
+
+  cg::cluster_group cluster = cg::this_cluster();
+  const int csize = static_cast<int>(cluster.num_blocks());
+  const int rank = static_cast<int>(cluster.block_rank());
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int i = (blockIdx.x / csize) * 32 + lane;
+
+  float ox = nan_f(), oy = nan_f();
   int ot = 0;
-  if (active) {
-    o = obs_xy[i];
-    ot = obs_type[i];
+  if (i < n && (obs_valid == nullptr || obs_valid[i])) {
+    const float2 o = obs_xy[i];
+    ox = o.x;
+    oy = o.y;
+    ot = obs_type_float
+             ? __float2int_rz(static_cast<const float*>(obs_type)[i * obs_type_stride])
+             : static_cast<const int*>(obs_type)[i * obs_type_stride];
   }
+  const int m_valid = lm_count == nullptr ? m : min(m, *lm_count);
+
+  // Thread t stages landmark base + t of each chunk; the next chunk's loads
+  // are issued before the current one is walked.
+  float4 lm = make_float4(0.f, 0.f, 0.f, 0.f), cov = lm;
+  auto fetch = [&](int base) {
+    const int j = base + static_cast<int>(threadIdx.x);
+    if (j < m) {
+      const float2 p = j < m_valid ? lm_xy[j] : make_float2(nan_f(), nan_f());
+      lm = make_float4(p.x, p.y, __int_as_float(lm_type[j]), 0.f);
+      if constexpr (kMahalanobis) {
+        const float* c = lm_cov + 3 * static_cast<long long>(j);
+        cov = make_float4(c[0], __fmul_rn(2.0f, c[1]), c[2], 0.f);
+      }
+    }
+  };
+  const int stride = csize * kChunk;
   float best = kBig;
   int arg = 0;
-
-  for (int base = 0; base < m; base += kLmTile) {
-    const int cnt = min(kLmTile, m - base);
-    __syncthreads();  // previous tile fully consumed
-    for (int t = threadIdx.x; t < cnt; t += kObsPerBlock) {
-      s_xy[t] = lm_xy[base + t];
-      s_type[t] = lm_type[base + t];
-    }
-    if constexpr (kMahalanobis) {
-      for (int t = threadIdx.x; t < 3 * cnt; t += kObsPerBlock)
-        s_cov[t] = lm_cov[3 * base + t];
-    }
+  if (rank * kChunk < m) fetch(rank * kChunk);
+  for (int base = rank * kChunk; base < m; base += stride) {
+    const int cnt = min(kChunk, m - base);
+    __syncthreads();  // the previous chunk is consumed
+    s_lm[threadIdx.x] = lm;
+    if constexpr (kMahalanobis) s_cov[threadIdx.x] = cov;
     __syncthreads();
-    if (!active) continue;
-    for (int k = 0; k < cnt; ++k) {
-      const float dx = __fsub_rn(o.x, s_xy[k].x);
-      const float dy = __fsub_rn(o.y, s_xy[k].y);
+    if (base + stride < m) fetch(base + stride);
+    for (int k = warp; k < cnt; k += kWarps) {
+      const float4 l = s_lm[k];
+      const float dx = __fsub_rn(ox, l.x);
+      const float dy = __fsub_rn(oy, l.y);
       float cost;
       if constexpr (kMahalanobis) {
-        const float a = s_cov[3 * k], b = s_cov[3 * k + 1], c = s_cov[3 * k + 2];
-        const float t1 = __fmul_rn(__fmul_rn(a, dx), dx);
-        const float t2 = __fmul_rn(__fmul_rn(__fmul_rn(2.0f, b), dx), dy);
-        const float t3 = __fmul_rn(__fmul_rn(c, dy), dy);
+        const float4 q = s_cov[k];
+        const float t1 = __fmul_rn(__fmul_rn(q.x, dx), dx);
+        const float t2 = __fmul_rn(__fmul_rn(q.y, dx), dy);
+        const float t3 = __fmul_rn(__fmul_rn(q.z, dy), dy);
         cost = __fadd_rn(__fadd_rn(t1, t2), t3);
       } else {
         cost = __fadd_rn(__fmul_rn(dx, dx), __fmul_rn(dy, dy));
       }
-      if (s_type[k] == ot && cost < gate2 && cost < best) {
+      if (__float_as_int(l.z) == ot && cost < gate2 && cost < best) {
         best = cost;
         arg = base + k;
       }
     }
   }
-  if (active) {
-    idx_out[i] = arg;
-    matched_out[i] = best < kBig;
-    cost_out[i] = best;
+
+  s_cost[warp][lane] = best;
+  s_idx[warp][lane] = arg;
+  __syncthreads();
+  if (warp == 0) {
+    for (int w = 1; w < kWarps; ++w) {
+      const float c = s_cost[w][lane];
+      const int j = s_idx[w][lane];
+      if (before(c, j, best, arg)) {
+        best = c;
+        arg = j;
+      }
+    }
+    s_cost[0][lane] = best;
+    s_idx[0][lane] = arg;
   }
+  if (csize > 1) {
+    cluster.sync();  // every rank's row 0 is written and visible
+    if (rank == 0 && warp == 0) {
+      for (int r = 1; r < csize; ++r) {
+        const float c = cluster.map_shared_rank(&s_cost[0][0], r)[lane];
+        const int j = cluster.map_shared_rank(&s_idx[0][0], r)[lane];
+        if (before(c, j, best, arg)) {
+          best = c;
+          arg = j;
+        }
+      }
+    }
+    cluster.sync();  // no rank leaves while rank 0 still reads its shared memory
+  }
+  if (rank == 0 && warp == 0 && i < n) {
+    idx_out[i] = arg;
+    cost_out[i] = best;
+    matched_out[i] = best < kBig;
+  }
+}
+
+// Whether a cluster of `csize` blocks of the kernel fits on the card: checked
+// once per (form, size) with cudaOccupancyMaxActiveClusters, then cached
+// (0 unknown, 1 fits, else the error to return).
+int g_fits[2][kMaxCluster + 1];
+
+template <bool kMahalanobis>
+int cluster_fits(const cudaLaunchConfig_t& cfg, int csize) {
+  int& state = g_fits[kMahalanobis][csize];
+  if (state == 0) {
+    int clusters = 0;
+    cudaError_t err = cudaOccupancyMaxActiveClusters(&clusters, assoc_kernel<kMahalanobis>, &cfg);
+    if (err == cudaSuccess && clusters < 1) err = cudaErrorInvalidClusterSize;
+    state = err == cudaSuccess ? 1 : static_cast<int>(err);
+  }
+  return state == 1 ? 0 : state;
+}
+
+template <bool kMahalanobis>
+int launch(cudaLaunchConfig_t& cfg, int csize, const void* obs_xy, const void* obs_type,
+           long long obs_type_stride, int obs_type_float, const void* obs_valid,
+           const void* lm_xy, const void* lm_type, const void* lm_cov, const void* lm_count,
+           int n, int m, float gate2, void* idx, void* cost, void* matched) {
+  if (const int err = cluster_fits<kMahalanobis>(cfg, csize)) return err;
+  const cudaError_t err = cudaLaunchKernelEx(
+      &cfg, assoc_kernel<kMahalanobis>, static_cast<const float2*>(obs_xy), obs_type,
+      obs_type_stride, obs_type_float, static_cast<const bool*>(obs_valid),
+      static_cast<const float2*>(lm_xy), static_cast<const int*>(lm_type),
+      static_cast<const float*>(lm_cov), static_cast<const int*>(lm_count), n, m, gate2,
+      static_cast<int*>(idx), static_cast<float*>(cost), static_cast<bool*>(matched));
+  if (err != cudaSuccess) return static_cast<int>(err);
+  return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
 
+// One launch on `stream`. obs_type is int32, or float32 when obs_type_float
+// (truncated toward zero), read at obs_type[i * obs_type_stride]; obs_valid
+// ([n] bool) and lm_count (int32 scalar on the device) may be null. Writes
+// idx int32 [n], cost f32 [n] and matched bool [n].
+// `csize` (1..8) blocks of one cluster share 32 observations; each walks
+// landmark chunks of 256. Returns a cudaError_t; n <= 0 launches nothing.
 extern "C" int tpuslam_assoc(const void* obs_xy, const void* obs_type,
-                             const void* lm_xy, const void* lm_type,
-                             const void* lm_cov, int n, int m, float gate2,
-                             int mahalanobis, void* idx_out, void* matched_out,
-                             void* cost_out, void* stream) {
+                             long long obs_type_stride, int obs_type_float,
+                             const void* obs_valid, const void* lm_xy, const void* lm_type,
+                             const void* lm_cov, const void* lm_count, int n, int m,
+                             float gate2, int mahalanobis, int csize, void* idx,
+                             void* cost, void* matched, void* stream) {
   if (n <= 0) return 0;
-  const dim3 grid((n + kObsPerBlock - 1) / kObsPerBlock);
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  auto launch = mahalanobis ? assoc_kernel<true> : assoc_kernel<false>;
-  launch<<<grid, kObsPerBlock, 0, s>>>(
-      static_cast<const float2*>(obs_xy), static_cast<const int*>(obs_type),
-      static_cast<const float2*>(lm_xy), static_cast<const int*>(lm_type),
-      static_cast<const float*>(lm_cov), n, m, gate2,
-      static_cast<int*>(idx_out), static_cast<bool*>(matched_out),
-      static_cast<float*>(cost_out));
-  return static_cast<int>(cudaGetLastError());
+  if (csize < 1 || csize > kMaxCluster) return static_cast<int>(cudaErrorInvalidValue);
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = csize;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(((n + 31) / 32) * csize);
+  cfg.blockDim = dim3(kThreads);
+  cfg.dynamicSmemBytes = 0;
+  cfg.stream = static_cast<cudaStream_t>(stream);
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  auto go = mahalanobis ? launch<true> : launch<false>;
+  return go(cfg, csize, obs_xy, obs_type, obs_type_stride, obs_type_float, obs_valid, lm_xy,
+            lm_type, lm_cov, lm_count, n, m, gate2, idx, cost, matched);
 }
 
 extern "C" const char* tpuslam_assoc_error_string(int err) {

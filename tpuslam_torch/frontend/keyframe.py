@@ -110,22 +110,22 @@ def _associate_shared(state: SlamState, obs, obs_valid, pose, cfg: SlamConfig):
     body_all = _body_xy(obs, cfg)
     g = state.graph
     if _use_assoc_kernel(cfg):
-        j, matched, _ = _provider_associate(glob_all, obs[:, 3].to(torch.int32), obs_valid,
-                                            g.lm_xy, g.lm_type, g.lm_valid, cfg)
+        j, matched, _ = _provider_associate(glob_all, obs[:, 3], obs_valid,
+                                            g.lm_xy, g.lm_type, g.n_landmarks, cfg)
         return glob_all, body_all, j, matched
     diff = glob_all[:, None, :] - g.lm_xy[None, :, :]
     cost, gate = _gate_cost(torch.sum(diff * diff, dim=-1), cfg)
     return glob_all, body_all, cost, gate
 
 
-def _provider_associate(glob, otype, valid, lm_xy, lm_type, lm_valid, cfg: SlamConfig):
+def _provider_associate(glob, otype, valid, lm_xy, lm_type, n_landmarks, cfg: SlamConfig):
     """(match_idx, matched, cost) for a flat observation batch from the
-    association kernel; invalid observations get type -2 and invalid
-    landmarks type -1, which never match."""
-    otype_eff = torch.where(valid, otype, -2).to(torch.int32)
-    lm_type_eff = torch.where(lm_valid, lm_type, -1).to(torch.int32)
-    return associate_kernel(glob.contiguous(), otype_eff, lm_xy, lm_type_eff,
-                            cfg.same_cone_threshold ** 2)
+    association kernel, which reads the float type column `otype` as int32
+    and masks invalid observations and landmarks past `n_landmarks` itself:
+    neither ever matches, as the types -2 and -1 of the JAX package's
+    `_provider_associate` do."""
+    return associate_kernel(glob.contiguous(), otype, lm_xy, lm_type,
+                            cfg.same_cone_threshold ** 2, obs_valid=valid, lm_count=n_landmarks)
 
 
 def _first_index(mask):

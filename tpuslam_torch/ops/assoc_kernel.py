@@ -9,6 +9,7 @@ launches this process made.
 from __future__ import annotations
 
 import ctypes
+import functools
 
 import torch
 
@@ -17,7 +18,10 @@ from tpuslam_torch import _build
 __all__ = ["associate_kernel", "associate_plain", "launches"]
 
 _BIG = 1e30
+MAX_CLUSTER = 8       # the portable thread-block cluster size
+CHUNK = 256           # landmarks a block stages per pass (csrc/assoc.cu kChunk)
 launches = 0
+_entry = None         # the C entry, resolved at the first launch
 
 
 def _gated_cost(obs_xy, obs_type, lm_xy, lm_type, gate2, lm_cov_inv_packed, mahalanobis):
@@ -38,77 +42,117 @@ def _gated_cost(obs_xy, obs_type, lm_xy, lm_type, gate2, lm_cov_inv_packed, maha
 
 
 def associate_plain(obs_xy, obs_type, lm_xy, lm_type, gate2,
-                    lm_cov_inv_packed=None, mahalanobis: bool = False):
+                    lm_cov_inv_packed=None, mahalanobis: bool = False,
+                    obs_valid=None, lm_count=None):
     """Plain PyTorch version of `associate_kernel`: the [N, M] gated cost
     and a first-index argmin. Returns (idx [N] int32, matched [N] bool,
     cost [N] f32); unmatched observations get idx 0 and cost 1e30."""
     if mahalanobis and lm_cov_inv_packed is None:
         raise ValueError("mahalanobis needs lm_cov_inv_packed")
-    n = obs_xy.shape[0]
-    if lm_xy.shape[0] == 0:
+    n, m = obs_xy.shape[0], lm_xy.shape[0]
+    if m == 0:
         return (torch.zeros(n, dtype=torch.int32, device=obs_xy.device),
                 torch.zeros(n, dtype=torch.bool, device=obs_xy.device),
                 torch.full((n,), _BIG, dtype=torch.float32, device=obs_xy.device))
-    gated = _gated_cost(obs_xy, obs_type, lm_xy, lm_type, gate2, lm_cov_inv_packed,
-                        mahalanobis)
+    gated = _gated_cost(obs_xy, obs_type.to(torch.int32), lm_xy, lm_type, gate2,
+                        lm_cov_inv_packed, mahalanobis)
+    if obs_valid is not None:
+        gated = torch.where(obs_valid[:, None], gated, _BIG)
+    if lm_count is not None:
+        lm_ok = torch.arange(m, device=lm_xy.device) < lm_count
+        gated = torch.where(lm_ok[None, :], gated, _BIG)
     idx = torch.argmin(gated, dim=1)
     cost = torch.gather(gated, 1, idx[:, None])[:, 0]
     return idx.to(torch.int32), cost < _BIG, cost
 
 
-def _check(t: torch.Tensor, name: str, dtype, shape):
-    if t.dtype != dtype or tuple(t.shape) != shape or not t.is_contiguous():
-        raise ValueError(f"{name}: want contiguous {dtype} {shape}, got "
-                         f"{t.dtype} {tuple(t.shape)} contiguous={t.is_contiguous()}")
+@functools.lru_cache(maxsize=64)
+def _plan(n: int, m: int, sms: int) -> int:
+    """Cluster size for N observations and M landmarks on a card of `sms`
+    SMs. A block walks chunks of CHUNK landmarks; a map of several chunks is
+    split over a cluster of up to MAX_CLUSTER blocks, no wider than keeps the
+    grid of (N / 32) clusters within one wave (a cluster barrier costs about
+    as much as one chunk's walk, so one chunk is never split)."""
+    tiles = -(-n // 32)
+    return max(1, min(MAX_CLUSTER, -(-m // CHUNK), sms // tiles))
+
+
+@functools.lru_cache(maxsize=None)
+def _sms(dev: int) -> int:
+    return torch.cuda.get_device_properties(dev).multi_processor_count
+
+
+def _load():
+    global _entry
+    p, i = ctypes.c_void_p, ctypes.c_int
+    lib = _build.load("assoc", {"tpuslam_assoc": (
+        [p, p, ctypes.c_longlong, i, p, p, p, p, p, i, i, ctypes.c_float, i, i, p, p, p, p], i)})
+    _entry = lib.tpuslam_assoc
+    return lib
+
+
+def _bad(name, t, dtype, shape, dev, contiguous=True):
+    if (t.dtype != dtype or t.shape != shape or t.get_device() != dev
+            or (contiguous and not t.is_contiguous())):
+        raise ValueError(f"{name}: want {'contiguous ' if contiguous else ''}{dtype} "
+                         f"{tuple(shape)} on cuda:{dev}, got {t.dtype} {tuple(t.shape)} "
+                         f"on {t.device} contiguous={t.is_contiguous()}")
 
 
 def associate_kernel(obs_xy, obs_type, lm_xy, lm_type, gate2,
-                     lm_cov_inv_packed=None, mahalanobis: bool = False):
+                     lm_cov_inv_packed=None, mahalanobis: bool = False,
+                     obs_valid=None, lm_count=None):
     """Type-gated nearest association. Returns (idx [N] int32, matched [N]
     bool, cost [N] f32).
 
-    obs_xy [N,2] f32; obs_type [N] i32 (invalid observations: -2);
-    lm_xy [M,2] f32; lm_type [M] i32 (invalid landmarks: -1); gate2 is the
-    squared gate (Euclidean) or the chi-square bound (Mahalanobis);
-    lm_cov_inv_packed [M,3] = (a, b, c) of each inverse covariance.
-    The lowest landmark index wins ties.
+    obs_xy [N,2] f32; obs_type [N] i32, or f32 of any stride (truncated
+    toward zero, as `.to(torch.int32)` does); lm_xy [M,2] f32; lm_type [M]
+    i32; gate2 is the squared gate (Euclidean) or the chi-square bound
+    (Mahalanobis); lm_cov_inv_packed [M,3] = (a, b, c) of each inverse
+    covariance. Optional masks: an observation whose `obs_valid` [N] bool is
+    False, and a landmark at index >= `lm_count` (int32 scalar tensor), never
+    match. The lowest landmark index wins ties.
     """
+    global launches
     if mahalanobis and lm_cov_inv_packed is None:
         raise ValueError("mahalanobis needs lm_cov_inv_packed")
     if not obs_xy.is_cuda:
         return associate_plain(obs_xy, obs_type, lm_xy, lm_type, gate2,
-                               lm_cov_inv_packed, mahalanobis)
-    global launches
+                               lm_cov_inv_packed, mahalanobis, obs_valid, lm_count)
     n, m = obs_xy.shape[0], lm_xy.shape[0]
-    _check(obs_xy, "obs_xy", torch.float32, (n, 2))
-    _check(obs_type, "obs_type", torch.int32, (n,))
-    _check(lm_xy, "lm_xy", torch.float32, (m, 2))
-    _check(lm_type, "lm_type", torch.int32, (m,))
-    cov = lm_xy
+    dev = obs_xy.get_device()
+    _bad("obs_xy", obs_xy, torch.float32, (n, 2), dev)
+    float_type = obs_type.dtype == torch.float32
+    _bad("obs_type", obs_type, torch.float32 if float_type else torch.int32, (n,), dev,
+         contiguous=not float_type)
+    _bad("lm_xy", lm_xy, torch.float32, (m, 2), dev)
+    _bad("lm_type", lm_type, torch.int32, (m,), dev)
+    cov = 0
     if mahalanobis:
-        _check(lm_cov_inv_packed, "lm_cov_inv_packed", torch.float32, (m, 3))
-        cov = lm_cov_inv_packed
-    dev = obs_xy.device
-    for name, t in (("obs_type", obs_type), ("lm_xy", lm_xy), ("lm_type", lm_type),
-                    ("lm_cov_inv_packed", cov)):
-        if t.device != dev:
-            raise ValueError(f"{name} is on {t.device}, obs_xy on {dev}")
-    for name, t in (("obs_xy", obs_xy), ("lm_xy", lm_xy)):
-        if t.data_ptr() % 8:
-            raise ValueError(f"{name} must be 8-byte aligned (read as float2)")
-    idx = torch.empty(n, dtype=torch.int32, device=dev)
-    matched = torch.empty(n, dtype=torch.bool, device=dev)
-    cost = torch.empty(n, dtype=torch.float32, device=dev)
-    p = ctypes.c_void_p
-    lib = _build.load("assoc", {"tpuslam_assoc": (
-        [p, p, p, p, p, ctypes.c_int, ctypes.c_int, ctypes.c_float, ctypes.c_int,
-         p, p, p, p], ctypes.c_int)})
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        err = lib.tpuslam_assoc(obs_xy.data_ptr(), obs_type.data_ptr(), lm_xy.data_ptr(),
-                                lm_type.data_ptr(), cov.data_ptr(), n, m, float(gate2),
-                                int(mahalanobis), idx.data_ptr(), matched.data_ptr(),
-                                cost.data_ptr(), stream)
-    _build.check(lib, "assoc", err)
+        _bad("lm_cov_inv_packed", lm_cov_inv_packed, torch.float32, (m, 3), dev)
+        cov = lm_cov_inv_packed.data_ptr()
+    valid = count = 0
+    if obs_valid is not None:
+        _bad("obs_valid", obs_valid, torch.bool, (n,), dev)
+        valid = obs_valid.data_ptr()
+    if lm_count is not None:
+        _bad("lm_count", lm_count, torch.int32, (), dev)
+        count = lm_count.data_ptr()
+    if obs_xy.data_ptr() % 8 or lm_xy.data_ptr() % 8:
+        raise ValueError("obs_xy and lm_xy must be 8-byte aligned (read as float2)")
+    idx = torch.empty(n, dtype=torch.int32, device=obs_xy.device)
+    cost = torch.empty(n, dtype=torch.float32, device=obs_xy.device)
+    matched = torch.empty(n, dtype=torch.bool, device=obs_xy.device)
+    if n == 0:
+        return idx, matched, cost
+    if _entry is None:
+        _load()
+    csize = _plan(n, m, _sms(dev))
+    err = _entry(obs_xy.data_ptr(), obs_type.data_ptr(), obs_type.stride(0), int(float_type),
+                 valid, lm_xy.data_ptr(), lm_type.data_ptr(), cov, count, n, m, gate2,
+                 int(mahalanobis), csize, idx.data_ptr(), cost.data_ptr(),
+                 matched.data_ptr(), torch.cuda.current_stream(dev).cuda_stream)
+    if err:
+        _build.check(_build.load("assoc", {}), "assoc", err)
     launches += 1
     return idx, matched, cost
