@@ -10,8 +10,8 @@
 Phases, in order; the first that fails ends the run with exit code 1:
   1. build   — compile both CUDA kernels with nvcc (sm_90a), in parallel;
   2. kernels — each kernel against its plain PyTorch twin on the card: the
-               association kernel bit-equal at ASSOC_CHECKS (the lap,
-               blocked and pod shapes, ragged sizes, ties) and in its
+               association kernel bit-equal at ASSOC_CHECKS (the lap, both
+               blocked and the pod shapes, ragged sizes, ties) and in its
                masked form;
   3. compat  — the per-frame engine (`run_pass`) in the reference-compat
                configuration ('first' association, plain PyTorch) on the
@@ -19,12 +19,18 @@ Phases, in order; the first that fails ends the run with exit code 1:
   4. kernel association — the same lap with association='nearest' through
                the association kernel, held to the JAX package's numbers
                and to a CPU run of the port;
+  blocked  — the blocked pipeline (`run_pass_blocked`, block 32: bench.py's
+               path) on the same lap in both configurations, held to the
+               per-frame runs of phases 3 and 4 and to the JAX package's
+               numbers, every frame done by the blocks, and the association
+               kernel launched once per block at 512 x 256;
   5. closure solve — `gauss_newton.optimize` on the graph the closure GN
                solves, through the Cholesky kernel and through
                `torch.linalg.cholesky_ex`, and the kernel's factor of the
                solve's ill-conditioned matrix held to a float64 factor;
-  6. timing  — frames/s of phases 3 and 4 and their kernel launches per
-               keyframe; each kernel's time per wrapper call beside its
+  6. timing  — frames/s of the per-frame and blocked laps, their kernel
+               launches and device-to-host reads per keyframe and device-busy
+               share; each kernel's time per wrapper call beside its
                twin's and the library call's (CUDA events, in turns), its
                device time per launch (torch.profiler) and its bound from
                this run's shapes, the association kernel at each of
@@ -50,6 +56,9 @@ import torch
 from tpuslam_torch import _build
 from tpuslam_torch.backend import gauss_newton as gn
 from tpuslam_torch.backend.graph import GraphCapacity
+from tpuslam_torch.frontend import blocked as blocked_mod
+from tpuslam_torch.frontend import keyframe as keyframe_mod
+from tpuslam_torch.frontend.blocked import run_pass_blocked
 from tpuslam_torch.frontend.keyframe import _gn_config
 from tpuslam_torch.frontend.pipeline import run_pass
 from tpuslam_torch.ops import assoc_kernel as A
@@ -62,6 +71,7 @@ SIM = dict(laps=1.4, keyframe_dt=0.1, speed=8.0, max_range=20.0, seed=12)
 CAP = GraphCapacity(512, 256, 8192)
 CLOSURE_FRAME = 212         # the graph after frame CLOSURE_FRAME - 1 is the one the closure GN solves
 CLOSURE_N = 768             # 3 x the 256-pose bucket covering it
+BLOCK = 32                  # bench.py's block (bench.py:167-169)
 
 # The JAX package's results on this scenario, computed on the CPU with
 # tpuslam.frontend.pipeline.run_sequence; tests/test_torch_pipeline.py
@@ -82,10 +92,13 @@ LAPS_TIMED = 5              # the lap rate is the median of this many laps (host
 # the tensor cores, and HBM3
 PEAK_FP32_FLOP_S, PEAK_HBM_BYTE_S = 67e12, 3.35e12
 # (N observations, M landmarks) of the association kernel: the per-frame lap
-# (the observation and landmark capacities), the blocked pipeline's launch
-# (tpuslam/frontend/blocked.py:495-499, block 32 x 64 observations) and the
-# pod-scale map the TPU kernel was built for (scripts/exp_block_provider.py:104-110)
-ASSOC_SHAPES = {"lap": (64, 256), "blocked": (2048, 256), "pod": (512, 4096)}
+# (the observation and landmark capacities); the blocked pipeline's launch,
+# block 32 x the compaction width (tpuslam/frontend/blocked.py:1207-1227),
+# which is 16 on the bench lap (at most 12 valid observations per frame) and
+# 64 on denser streams; and the pod-scale map the TPU kernel was built for
+# (scripts/exp_block_provider.py:104-110)
+ASSOC_SHAPES = {"lap": (64, 256), "blocked16": (512, 256), "blocked64": (2048, 256),
+                "pod": (512, 4096)}
 # the cluster sizes `--assoc-plans` times at each shape
 ASSOC_PLANS = (1, 2, 4, 8)
 
@@ -180,7 +193,8 @@ def tie_pairs(m, seed):
 # across chunks and ranks
 ASSOC_CHECKS = ([(n, m, 0, False) for n, m in ASSOC_SHAPES.values()] + [(61, 2000, 5, False)]
                 + [(n, m, 1, False) for n in (1, 129, 2049) for m in (0, 1, 4097)]
-                + [(64, 256, 3, True), (2048, 256, 3, True), (512, 4096, 4, True)])
+                + [(64, 256, 3, True), (512, 256, 3, True), (2048, 256, 3, True),
+                   (512, 4096, 4, True)])
 
 
 def assoc_flop(n, m, mahalanobis):
@@ -253,6 +267,53 @@ def assoc_masked_check(seed, device="cuda"):
     return int(masked[1].sum()), float((masked[2] - twin[2]).abs().max())
 
 
+def compare_runs(what, got, want, closure):
+    """A lap (state, outputs) against another of the same configuration on
+    the card: discrete outputs and state, published poses, edge rows up to
+    n_obs and every output before the closure frame bit-equal; the rest
+    (after the closure GN, whose CUDA sums are atomics) within POSE_ATOL,
+    cone azimuths, in degrees, within 60 x POSE_ATOL."""
+    (st_g, out_g), (st_w, out_w) = got, want
+    for f in dataclasses.fields(out_w):
+        a, b = getattr(out_g, f.name), getattr(out_w, f.name)
+        if a.dtype != b.dtype or a.shape != b.shape:
+            raise AssertionError(f"{what}: outputs.{f.name} {a.dtype} {tuple(a.shape)}, "
+                                 f"want {b.dtype} {tuple(b.shape)}")
+        exact = not a.is_floating_point() or f.name == "pose"
+        if not torch.equal(a if exact else a[:closure], b if exact else b[:closure]):
+            raise AssertionError(f"{what}: outputs.{f.name} differs")
+        if not exact:
+            atol = POSE_ATOL * (60.0 if f.name == "cone_azimuth" else 1.0)
+            torch.testing.assert_close(a, b, atol=atol, rtol=0, msg=f"{what}: {f.name}")
+    n = int(st_w.graph.n_obs)
+    for owner_g, owner_w, path in ((st_g, st_w, ""), (st_g.graph, st_w.graph, "graph.")):
+        for f in dataclasses.fields(owner_w):
+            if f.name == "graph":
+                continue
+            a, b = getattr(owner_g, f.name), getattr(owner_w, f.name)
+            if f.name in ("obs_pose", "obs_lm", "obs_xy"):
+                a, b = a[:n], b[:n]
+            if a.is_floating_point() and f.name != "obs_xy":
+                torch.testing.assert_close(a, b, atol=POSE_ATOL, rtol=0,
+                                           msg=f"{what}: {path}{f.name}")
+            elif not torch.equal(a, b):
+                raise AssertionError(f"{what}: state.{path}{f.name} differs")
+
+
+def profile_counts(fn):
+    """(device busy ms, kernel launches, device-to-host copies) of one call
+    of `fn` under torch.profiler: device time summed over kernels and
+    copies."""
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    dev = [e for e in prof.key_averages() if e.device_type.name == "CUDA"]
+    return (sum(e.self_device_time_total for e in dev) / 1e3,
+            sum(e.count for e in dev if not e.key.startswith(("Memcpy", "Memset"))),
+            sum(e.count for e in dev if e.key.startswith("Memcpy DtoH")))
+
+
 def spd(n, seed=None):
     rng = np.random.default_rng(n if seed is None else seed)
     m = rng.normal(0, 1, (n, n)).astype(np.float32)
@@ -296,6 +357,7 @@ class Smoke:
         }
         self.runs = {}
         self.closure_s = None
+        self.closure_graph = None
 
     def log(self, msg: str) -> None:
         print(msg, flush=True)
@@ -370,7 +432,7 @@ class Smoke:
         guarded = int(np.sum((np.abs(odom[:, 0]) <= 200.0) & (np.abs(odom[:, 1]) <= 200.0)))
         if counts["assoc"] != guarded:
             raise AssertionError(f"assoc launches {counts['assoc']} != {guarded} keyframes")
-        self.kernels["assoc"]["launches"] = counts["assoc"]
+        self.kernels["assoc"]["launches_by_path"] = {"per_frame": counts["assoc"]}
         st_g, out_g = self.runs["nearest"]
         st_c, out_c = run_pass(*inputs(self.scen, "cpu"), configs()["nearest"])
         for f in ("send", "loop_closed", "n_landmarks", "cone_type"):
@@ -388,12 +450,69 @@ class Smoke:
         self.log(f"nearest: {guarded} assoc launches = keyframes run; per-frame outputs "
                  f"equal the CPU run (discrete exact, poses within {POSE_ATOL})")
 
+    # -- after 4
+    def blocked(self):
+        """bench.py's path, `run_pass_blocked(..., block=BLOCK)`, on the card in
+        both configurations: held to the JAX package's numbers and to the
+        per-frame run of phase 3 or 4 in this process; every frame is done by
+        the blocks (none falls to the per-frame path); with the kernel, one
+        association launch per block run, each at the blocked16 shape."""
+        obs, valid, poses = inputs(self.scen, "cuda")
+        t = obs.shape[0]
+        t_pad = -(-t // BLOCK) * BLOCK
+        done, shapes = [], []
+        core, kernel = blocked_mod.blocked_core, keyframe_mod.associate_kernel
+
+        def recording_core(*a, **kw):
+            out = core(*a, **kw)
+            done.append(out[2])
+            return out
+
+        def recording_kernel(obs_xy, obs_type, lm_xy, *a, **kw):
+            shapes.append((obs_xy.shape[0], lm_xy.shape[0]))
+            return kernel(obs_xy, obs_type, lm_xy, *a, **kw)
+
+        blocked_mod.blocked_core, keyframe_mod.associate_kernel = recording_core, recording_kernel
+        try:
+            for name, cfg in configs().items():
+                done.clear()
+                shapes.clear()
+                A.launches = C.launches = 0
+                state, outs = run_pass_blocked(obs, valid, poses, cfg, block=BLOCK)
+                torch.cuda.synchronize()
+                counts = {"assoc": A.launches, "cholesky": C.launches}
+                metrics = lap_metrics(self.track, self.scen, state, outs)
+                self.log(f"blocked {name}: " + json.dumps(metrics) + f" launches {counts}, "
+                         f"done_upto {done} of {t} frames ({t_pad} padded)")
+                check_metrics(name, metrics)
+                if done != [t_pad]:
+                    raise AssertionError(f"blocked {name}: done_upto {done}, want [{t_pad}]: "
+                                         "frames fell to the per-frame path")
+                kc = metrics["closure_frame"]
+                blocks = kc // BLOCK + 1 + t_pad // BLOCK - (kc + 1) // BLOCK
+                want = {"assoc": blocks if name == "nearest" else 0, "cholesky": 0}
+                if counts != want or len(shapes) != want["assoc"] \
+                        or set(shapes) - {ASSOC_SHAPES["blocked16"]}:
+                    raise AssertionError(f"blocked {name}: launches {counts}, shapes {shapes}; "
+                                         f"want {want} at {ASSOC_SHAPES['blocked16']}")
+                compare_runs(f"blocked {name}", (state, outs), self.runs[name], kc)
+                self.log(f"blocked {name}: equal to the per-frame run (discrete outputs, poses, "
+                         f"edges and frames before the closure exact; the rest within "
+                         f"{POSE_ATOL}); {blocks} blocks run, " + (
+                             f"one assoc launch each at N x M = {ASSOC_SHAPES['blocked16']}"
+                             if want["assoc"] else "dense association, no kernel launch"))
+                if name == "nearest":
+                    self.kernels["assoc"]["launches"] = counts["assoc"]
+                    self.kernels["assoc"]["launches_by_path"]["blocked"] = counts["assoc"]
+        finally:
+            blocked_mod.blocked_core, keyframe_mod.associate_kernel = core, kernel
+
     # -- 5
     def closure_solve(self):
         obs, valid, poses = inputs(self.scen, "cuda")
         state, _ = run_pass(obs[:CLOSURE_FRAME], valid[:CLOSURE_FRAME],
                             poses[:CLOSURE_FRAME], configs()["first"])
-        g = state.graph
+        g = self.closure_graph = state.graph
         cfg = _gn_config(configs()["first"])
         sizes = []
         kernel = C.cholesky_kernel
@@ -463,12 +582,22 @@ class Smoke:
                                  f"{ratio['kernel'] / gamma:.3g} x gamma_(n+1)")
 
     # -- 6
+    @staticmethod
+    def laps(obs, valid, poses):
+        """name -> one lap: the per-frame engine and the blocked pipeline
+        (block BLOCK), each in both configurations."""
+        out = {}
+        for name, cfg in configs().items():
+            out[name] = functools.partial(run_pass, obs, valid, poses, cfg)
+            out[f"blocked {name}"] = functools.partial(run_pass_blocked, obs, valid, poses, cfg,
+                                                       block=BLOCK)
+        return out
+
     def timing(self):
         obs, valid, poses = inputs(self.scen, "cuda")
         t = obs.shape[0]
         lap_ms = {}
-        for name, cfg in configs().items():
-            lap = functools.partial(run_pass, obs, valid, poses, cfg)
+        for name, lap in self.laps(obs, valid, poses).items():
             lap()                                        # warm-up
             laps = sorted(cuda_ms(lap, reps=1, warmup=False) for _ in range(LAPS_TIMED))
             lap_ms[name] = ms = laps[len(laps) // 2]
@@ -500,8 +629,9 @@ class Smoke:
         """The association kernel at each of ASSOC_SHAPES, Euclidean and
         Mahalanobis: time per wrapper call (CUDA events over 100 back-to-back
         calls, median of 5 such runs: the host is noisy), device time per
-        launch (profiler), the plain twin's time and the bound. The lap's
-        Euclidean shape fills the `kernels` line."""
+        launch (profiler), the plain twin's time and the bound. The blocked
+        pipeline's Euclidean shape on the bench lap (blocked16) fills the
+        `kernels` line."""
         k = self.kernels["assoc"]
         k["library_ms"] = None    # no single PyTorch call computes it
         k["shapes"] = {}
@@ -525,7 +655,7 @@ class Smoke:
                          f"{r['ms'] * 1e3:.2f} us, device {r['device_ms'] * 1e3:.2f} us per "
                          f"launch, plain twin {r['plain_ms'] * 1e3:.1f} us, bound "
                          f"{r['bound_ms'] * 1e3:.4g} us ({r['bound_by']}) [{self.card}]")
-        k.update({f: k["shapes"]["lap"][f]
+        k.update({f: k["shapes"]["blocked16"][f]
                   for f in ("ms", "device_ms", "plain_ms", "bound_ms", "bound_by")})
 
     def assoc_plans(self):
@@ -620,24 +750,25 @@ class Smoke:
     def lap_profile(self, obs, valid, poses, lap_ms):
         """Device-busy share of each lap, from one lap under torch.profiler:
         device time summed over kernels and copies, against the unprofiled
-        lap time; plus kernel launches and device-to-host reads per frame."""
-        from torch.profiler import ProfilerActivity, profile
+        lap time; plus kernel launches and device-to-host reads per frame.
+        Then the same for the closure GN alone, the part of every lap that
+        the blocks do not change."""
         t = obs.shape[0]
-        for name, cfg in configs().items():
-            with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-                run_pass(obs, valid, poses, cfg)
-                torch.cuda.synchronize()
-            dev = [e for e in prof.key_averages() if e.device_type.name == "CUDA"]
-            busy = sum(e.self_device_time_total for e in dev) / 1e3
+        for name, lap in self.laps(obs, valid, poses).items():
+            busy, kernels, reads = profile_counts(lap)
             if busy == 0.0:
                 self.log(f"timing: {name} lap device busy share: not measured "
                          "(the profiler saw no device time)")
                 continue
-            kernels = sum(e.count for e in dev if not e.key.startswith(("Memcpy", "Memset")))
-            reads = sum(e.count for e in dev if e.key.startswith("Memcpy DtoH"))
             self.log(f"timing: {name} lap device busy {busy:.1f} ms of {lap_ms[name]:.1f} ms "
                      f"({100 * busy / lap_ms[name]:.1f}%), {kernels / t:.1f} kernel launches "
                      f"and {reads / t:.2f} device-to-host reads per frame [{self.card}]")
+        solve = functools.partial(gn.optimize, self.closure_graph, _gn_config(configs()["first"]))
+        ms = statistics.median(cuda_ms(solve, reps=1) for _ in range(5))
+        busy, kernels, reads = profile_counts(solve)
+        self.log(f"timing: closure GN alone (cholesky_ex): median {ms:.1f} ms of 5, device busy "
+                 f"{busy:.1f} ms, {kernels} kernel launches, {reads} device-to-host reads "
+                 f"[{self.card}]")
 
 
 def main() -> int:
@@ -651,8 +782,8 @@ def main() -> int:
         print("chip_smoke: TF32 could not be switched off", file=sys.stderr)
         return 1
     smoke = Smoke()
-    phases = (smoke.build, smoke.kernels_vs_plain, smoke.compat,
-              smoke.kernel_association, smoke.closure_solve, smoke.timing)
+    phases = (smoke.build, smoke.kernels_vs_plain, smoke.compat, smoke.kernel_association,
+              smoke.blocked, smoke.closure_solve, smoke.timing)
     if sys.argv[1:] == ["--assoc-plans"]:
         phases = (smoke.build, smoke.assoc_plans, smoke.assoc_host)
     elif sys.argv[1:]:

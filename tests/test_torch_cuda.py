@@ -1,6 +1,7 @@
 """Tests that need a CUDA device: each hand-written kernel against its plain
 PyTorch twin on the card, the wrappers' input checks, and the per-frame
-engine on the card against the port's own CPU run. They skip without a
+engine and the blocked pipeline on the card against the port's own CPU
+runs. They skip without a
 device. The GPU machine has no JAX, so this file imports none; run it there
 with `python -m pytest --noconftest -m cuda tests/test_torch_cuda.py`
 (the suite's conftest imports JAX)."""
@@ -10,6 +11,7 @@ import torch
 
 import chip_smoke
 from tpuslam_torch.backend.graph import GraphCapacity
+from tpuslam_torch.frontend.blocked import run_pass_blocked
 from tpuslam_torch.frontend.pipeline import run_pass
 from tpuslam_torch.ops import assoc_kernel as A
 from tpuslam_torch.ops import cholesky as C
@@ -180,3 +182,45 @@ def test_skidpad_on_cuda_matches_cpu(cuda, name):
         assert torch.equal(getattr(sg.graph, f).cpu(), getattr(sc.graph, f)), f
     np.testing.assert_allclose(sg.graph.poses.cpu().numpy(), sc.graph.poses.numpy(), atol=1e-3)
     assert bool(sg.loop_closure_complete)
+
+
+@pytest.mark.parametrize("name", ["first", "nearest"])
+def test_blocked_skidpad_on_cuda_matches_cpu(cuda, name):
+    """The blocked pipeline on the card against the port's CPU run of it:
+    discrete outputs and state exact, edge indices up to n_obs and
+    published poses exact (no GN publishes them), edge measurements within
+    1e-5, the rest within the closure GN's tolerance (its CUDA sums are
+    atomics); with the kernel, one launch per block run."""
+    scen = simulate(skidpad(), SimConfig(laps=1.3, seed=2))
+    kw = {} if name == "first" else dict(association="nearest", use_pallas_association=True)
+    cfg = SlamConfig(capacity=GraphCapacity(128, 128, 4096), **kw)
+    block = 8
+    runs = {}
+    for dev in ("cpu", cuda):
+        obs = torch.tensor(scen.obs, dtype=torch.float32, device=dev)
+        valid = torch.tensor(scen.obs_valid, device=dev)
+        poses = torch.tensor(scen.odom_poses, dtype=torch.float32, device=dev)
+        before = A.launches
+        runs[str(dev)] = run_pass_blocked(obs, valid, poses, cfg, block=block)
+        launched = A.launches - before
+    (sc, oc), (sg, og) = runs["cpu"], runs["cuda"]
+    assert bool(sg.loop_closure_complete)
+    if name == "nearest":
+        kc = int(torch.nonzero(oc.loop_closed)[0])
+        nb = -(-len(scen.times) // block)
+        assert launched == kc // block + 1 + nb - (kc + 1) // block, launched
+    for f in ("pose", "send", "loop_closed", "n_landmarks", "cone_type"):
+        assert torch.equal(getattr(og, f).cpu(), getattr(oc, f)), f
+    n = int(sc.graph.n_obs)
+    for f in ("n_landmarks", "n_obs", "n_poses", "lm_type"):
+        assert torch.equal(getattr(sg.graph, f).cpu(), getattr(sc.graph, f)), f
+    for f in ("obs_lm", "obs_pose"):
+        assert torch.equal(getattr(sg.graph, f)[:n].cpu(), getattr(sc.graph, f)[:n]), f
+    # CUDA's and the CPU's sin, cos and asin differ in the last bits
+    np.testing.assert_allclose(sg.graph.obs_xy[:n].cpu().numpy(), sc.graph.obs_xy[:n].numpy(),
+                               atol=1e-5, rtol=0)
+    for f in ("current_cone_index", "keyframe_count", "send_cone_data", "loop_closing"):
+        assert torch.equal(getattr(sg, f).cpu(), getattr(sc, f)), f
+    np.testing.assert_allclose(sg.graph.poses.cpu().numpy(), sc.graph.poses.numpy(), atol=1e-3)
+    np.testing.assert_allclose(sg.graph.lm_xy.cpu().numpy(), sc.graph.lm_xy.numpy(), atol=1e-3)
+    np.testing.assert_allclose(og.cone_distance.cpu().numpy(), oc.cone_distance.numpy(), atol=1e-3)

@@ -39,6 +39,7 @@ ASSOC_CASES = {
     "mahalanobis": dict(world=dict(seed=2), gate2=9.21, mahalanobis=True),
     "multi_tile": dict(world=dict(n=61, m=2000, seed=5), gate2=1.44, mahalanobis=False),
     "blocked": dict(smoke=dict(n=2048, m=256, seed=6), gate2=1.44, mahalanobis=False),
+    "blocked16": dict(smoke=dict(n=512, m=256, seed=11), gate2=1.44, mahalanobis=False),
     "pod": dict(smoke=dict(n=512, m=4096, seed=7), gate2=1.44, mahalanobis=False),
     "pod_mahalanobis": dict(smoke=dict(n=512, m=4096, seed=8), gate2=9.21, mahalanobis=True),
     "ties": dict(smoke=dict(n=512, m=4096, seed=9, ties=True), gate2=1.44, mahalanobis=False),
@@ -171,12 +172,29 @@ def test_cholesky_plain_clamps_nonpositive_pivots():
     np.testing.assert_allclose(got[:70].numpy(), want[:70], atol=5e-4, rtol=1e-3)
 
 
-def test_first_association_with_kernel_raises():
-    cap = GraphCapacity(8, 8, 32)
-    cfg = SlamConfig(capacity=cap, use_pallas_association=True)
-    with pytest.raises(ValueError):
-        perform_keyframe(initial_state(cap, "cpu"), torch.zeros(4, 4),
-                         torch.zeros(4, dtype=torch.bool), torch.zeros(3), cfg)
+def test_first_association_with_kernel_runs_dense(monkeypatch):
+    """'first' with use_pallas_association: the kernel has no index-order
+    policy, so the per-frame engine keeps the dense association, as the JAX
+    package's does; the port equals `tpuslam`'s run_sequence on the skidpad
+    lap and never calls the kernel's provider."""
+    from tests.test_torch_pipeline import (
+        _assert_same, _closure, _frames, _jax_run, _np_tree, _port_run, _scenario)
+    from tpuslam.backend.graph import GraphCapacity as JaxCap
+    from tpuslam_torch.frontend import keyframe
+    from tpuslam_torch.frontend.state import state_to_numpy
+
+    def refuse(*_a, **_k):
+        raise AssertionError("'first' reached the kernel's provider")
+
+    monkeypatch.setattr(keyframe, "_provider_associate", refuse)
+    _, scen, cap = _scenario("skidpad")
+    js, jo = _jax_run(JaxSlamConfig(capacity=JaxCap(*cap), use_pallas_association=True),
+                      _frames(scen))
+    want = (_np_tree(js), _np_tree(jo))
+    st, out = _port_run(SlamConfig(capacity=GraphCapacity(*cap), use_pallas_association=True),
+                        _frames(scen))
+    assert bool(st.loop_closure_complete)
+    _assert_same((state_to_numpy(st), _np_tree(out)), want, _closure(want[1]))
 
 
 @pytest.mark.parametrize("field,value", [

@@ -1,7 +1,7 @@
 """The port and its GPU smoke script import without JAX and without the JAX
 package: in a fresh interpreter with both `jax` and `tpuslam` made
-unimportable, every module of `tpuslam_torch`, `chip_smoke` and the GPU
-tests `tests/test_torch_cuda.py` import."""
+unimportable, every module of `tpuslam_torch` (the blocked pipeline among
+them), `chip_smoke` and the GPU tests `tests/test_torch_cuda.py` import."""
 import subprocess
 import sys
 from pathlib import Path
@@ -17,6 +17,7 @@ sys.modules["jax"] = sys.modules["tpuslam"] = None
 import tpuslam_torch
 for mod in pkgutil.walk_packages(tpuslam_torch.__path__, "tpuslam_torch."):
     importlib.import_module(mod.name)
+from tpuslam_torch.frontend.blocked import run_pass_blocked, run_sequence_blocked
 import chip_smoke
 sys.path.insert(0, "tests")
 import test_torch_cuda

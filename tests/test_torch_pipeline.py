@@ -169,6 +169,20 @@ def test_state_handoff_from_jax_at_frame_100():
     _assert_same((state_to_numpy(st), _np_tree(out)), (js, tail), _closure(tail))
 
 
+def test_zero_frames_matches_jax():
+    """T = 0: the state comes back unchanged and every output has a leading
+    axis of 0, with the JAX package's dtypes and trailing shapes."""
+    _, scen, cap = _scenario("skidpad")
+    jcfg, cfg = _configs(cap, "first")
+    js, jo = _jax_run(jcfg, _frames(scen, 0, 0))
+    st, out = _port_run(cfg, _frames(scen, 0, 0))
+    assert _np_equal(state_to_numpy(st), _np_tree(js))
+    got, want = _np_tree(out), _np_tree(jo)
+    assert got.keys() == want.keys()
+    for k, w in want.items():
+        assert got[k].shape == w.shape and got[k].dtype == w.dtype, (k, got[k], w)
+
+
 def _np_equal(a, b):
     """Same keys, dtypes and values, nested."""
     if isinstance(b, dict):

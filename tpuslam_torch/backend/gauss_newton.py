@@ -65,8 +65,8 @@ def chi2(g: FactorGraph, cfg: GNConfig):
     p_prev = g.poses[torch.clamp(k - 1, min=0)]
     r_o, _, _ = odometry_residuals(p_prev, g.poses, g.odo_meas)
     w_o = cfg.odo_info * odo_valid.to(dtype) * g.odo_w
-    r_l, _, _ = landmark_residuals(g.poses[g.obs_pose.long()], g.lm_xy[g.obs_lm.long()],
-                                   g.obs_xy)
+    op, ol = _edge_index(g.obs_pose, g.obs_lm, g.poses.shape[0], g.lm_xy.shape[0])
+    r_l, _, _ = landmark_residuals(g.poses[op], g.lm_xy[ol], g.obs_xy)
     w_l = _edge_weights(g, cfg)
     pv = g.pose_valid.to(dtype)
     r_pr = g.poses - g.prior_pose
@@ -111,12 +111,22 @@ def assemble_odometry(g: FactorGraph, cfg: GNConfig):
     return h_diag, h_off, gp
 
 
+def _edge_index(obs_pose, obs_lm, n_pose_rows: int, n_lm_rows: int):
+    """Edge rows' pose and landmark indices as long, clamped into range as
+    the JAX package's gathers clamp them. Rows past `n_obs` carry zero
+    weight but may hold any index: the mapping step leaves its dropped rows
+    there, whose landmark slot is the capacity once the store is full (an
+    out-of-range index raises on the CPU and asserts on CUDA)."""
+    return (torch.clamp(obs_pose.long(), 0, n_pose_rows - 1),
+            torch.clamp(obs_lm.long(), 0, n_lm_rows - 1))
+
+
 def landmark_edge_blocks(poses, lm_xy, obs_pose, obs_lm, obs_xy, w_l):
     """Landmark-edge contribution summed over the given edges: returns
     (h_diag_lm [P,3,3], w [P,3,L,2], hll [L,2,2], gp_lm [P,3], gl [L,2]);
     w[p, i, l, j] is entry (3p+i, 2l+j) of the coupling W [3P, 2L]."""
     P, L = poses.shape[0], lm_xy.shape[0]
-    op, ol = obs_pose.long(), obs_lm.long()
+    op, ol = _edge_index(obs_pose, obs_lm, P, L)
     r_l, j_lp, j_ll = landmark_residuals(poses[op], lm_xy[ol], obs_xy)
     wl3 = w_l[:, None, None]
     jtp = j_lp.transpose(-1, -2)                       # [E, 3, 2]

@@ -11,8 +11,9 @@ reads (pose in bounds, map frozen, enough valid cones) from the device in
 one transfer, and a mapping keyframe reads its closure flag in a second.
 
 Supported here: the reference-compat configuration and 'first' / 'nearest'
-association, dense or through the association kernel
-(`use_pallas_association`). `perform_keyframe` raises `NotImplementedError`,
+association, dense or, for 'nearest', through the association kernel
+(`use_pallas_association`; 'first' needs index order and stays dense, as
+in the JAX package). `perform_keyframe` raises `NotImplementedError`,
 naming the field, for every configuration outside that.
 """
 from __future__ import annotations
@@ -61,10 +62,6 @@ def _gn_config(cfg: SlamConfig) -> gn.GNConfig:
 
 def _check_supported(cfg: SlamConfig, assoc_mesh) -> None:
     """Refuse, by field name, every configuration this port does not run."""
-    if cfg.association == "first" and cfg.use_pallas_association:
-        # the kernel takes the nearest landmark; 'first' needs index order
-        raise ValueError("use_pallas_association needs association='nearest' "
-                         "or 'mahalanobis'; 'first' needs index order")
     unsupported = {
         "association": cfg.association not in ("first", "nearest"),
         "use_gps_prior": cfg.use_gps_prior,
@@ -135,14 +132,15 @@ def _first_index(mask):
 
 
 def _prefix_argmin_exclusive(vals, idxs):
-    """Running (min, argmin) over k < i, ties keeping the earliest; (inf, -1)
-    at i = 0. `torch.cummin` keeps the latest on ties, so this takes a
-    masked [N, N] min with a first-index argmin instead."""
-    n = vals.shape[0]
+    """Running (min, argmin) along the last axis over k < i, ties keeping
+    the earliest; (inf, -1) at i = 0. `torch.cummin` keeps the latest on
+    ties, so this takes a masked [..., N, N] min with a first-index argmin
+    instead."""
+    n = vals.shape[-1]
     k = torch.arange(n, device=vals.device)
-    before = torch.where(k[None, :] < k[:, None], vals[None, :], _INF)
-    mv = torch.min(before, dim=1).values
-    mi = idxs[torch.argmin(before, dim=1)]
+    before = torch.where(k[None, :] < k[:, None], vals[..., None, :], _INF)
+    mv = torch.min(before, dim=-1).values
+    mi = idxs[torch.argmin(before, dim=-1)]
     mi = torch.where(k == 0, -1, mi).to(idxs.dtype)
     return mv, mi
 

@@ -68,6 +68,25 @@ def cones_to_global(pose, obs, lever_arm=compat.REF_LIDAR_TO_COG,
                           lever_arm, ref_constants)
 
 
+def _atan2(y, x):
+    """`torch.atan2` whose value for each element does not depend on how
+    many elements the tensor holds. On the CPU, ATen computes the last
+    (length mod twice the SIMD width) elements of a buffer with the scalar
+    libm function and the rest with the vectorized one, which can differ in
+    the last bit; padding the flat buffer to a multiple of 64 puts every
+    element on the vectorized path, so one keyframe's cone packet and a
+    block of keyframes' packets agree bit for bit. CUDA computes every
+    element alike."""
+    if y.is_cuda:
+        return torch.atan2(y, x)
+    y, x = torch.broadcast_tensors(y, x)
+    shape, n = y.shape, y.numel()
+    pad = (-n) % 64
+    y = torch.cat([y.reshape(-1), y.new_zeros(pad)])
+    x = torch.cat([x.reshape(-1), x.new_ones(pad)])
+    return torch.atan2(y, x)[:n].reshape(shape)
+
+
 def global_to_body_spherical(pose, cone_xy, ref_constants: bool = True):
     """Global cone (x, y) -> (azimuth_deg, distance) seen from `pose`; with
     `ref_constants` the azimuth keeps the reference's deg/rad unit mixture."""
@@ -75,7 +94,7 @@ def global_to_body_spherical(pose, cone_xy, ref_constants: bool = True):
     dy = cone_xy[..., 1] - pose[..., 1]
     dist = torch.sqrt(dx * dx + dy * dy)
     r2d = compat.REF_RAD2DEG if ref_constants else 180.0 / math.pi
-    az = torch.atan2(dy, dx) * r2d
+    az = _atan2(dy, dx) * r2d
     if ref_constants:
         az = az - pose[..., 2] / r2d
     else:
