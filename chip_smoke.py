@@ -24,13 +24,21 @@ Phases, in order; the first that fails ends the run with exit code 1:
                per-frame runs of phases 3 and 4 and to the JAX package's
                numbers, every frame done by the blocks, and the association
                kernel launched once per block at 512 x 256;
+  improved — the improved mode (`SlamConfig.improved`) on the same lap:
+               I1 (nearest, dense) per frame and blocked at blocks 16 and
+               32, I2 (Mahalanobis through the association kernel) per
+               frame and at block 16, each held to the JAX package's numbers
+               for its path and block and to the port's CPU run of it, and
+               the kernel's Mahalanobis form launched once per keyframe per
+               frame and once per block, at 256 x 256, blocked;
   5. closure solve — `gauss_newton.optimize` on the graph the closure GN
                solves, through the Cholesky kernel and through
                `torch.linalg.cholesky_ex`, and the kernel's factor of the
                solve's ill-conditioned matrix held to a float64 factor;
-  6. timing  — frames/s of the per-frame and blocked laps, their kernel
-               launches and device-to-host reads per keyframe and device-busy
-               share; each kernel's time per wrapper call beside its
+  6. timing  — frames/s of the per-frame and blocked laps (compat,
+               'nearest' and the improved mode), their kernel launches and
+               device-to-host reads per keyframe and device-busy share; one
+               periodic window-GN firing alone; each kernel's time per wrapper call beside its
                twin's and the library call's (CUDA events, in turns), its
                device time per launch (torch.profiler) and its bound from
                this run's shapes, the association kernel at each of
@@ -59,11 +67,13 @@ from tpuslam_torch.backend.graph import GraphCapacity
 from tpuslam_torch.frontend import blocked as blocked_mod
 from tpuslam_torch.frontend import keyframe as keyframe_mod
 from tpuslam_torch.frontend.blocked import run_pass_blocked
-from tpuslam_torch.frontend.keyframe import _gn_config
-from tpuslam_torch.frontend.pipeline import run_pass
+from tpuslam_torch.frontend.keyframe import _gate_cost, _gn_config, periodic_gn
+from tpuslam_torch.frontend.pipeline import run_pass, run_sequence
+from tpuslam_torch.frontend.state import initial_state
 from tpuslam_torch.ops import assoc_kernel as A
 from tpuslam_torch.ops import cholesky as C
 from tpuslam_torch.runtime.config import SlamConfig
+from tpuslam_torch.geometry.spherical import cone_to_global
 from tpuslam_torch.sim import SimConfig, ate, simulate, trackdrive
 
 # The bench scenario (bench.py:34-38) and capacity (bench.py:152-153).
@@ -83,8 +93,44 @@ REFERENCE = {
     "nearest": dict(closure_frame=212, n_landmarks=112, n_obs=1974, sends=113,
                     current_cone_index=45, ate_published=0.210073,
                     ate_graph=0.290211, map_err_median=0.278863),
+    # the improved mode, each path held to the JAX package's same path and
+    # block (its per-frame, blocked and kernel paths differ by design);
+    # tests/test_torch_improved.py recomputes these
+    "I1": dict(closure_frame=212, n_landmarks=110, n_obs=1974, sends=113,
+               current_cone_index=44, ate_published=0.110485,
+               ate_graph=0.139777, map_err_median=0.024462),
+    "I1_b16": dict(closure_frame=212, n_landmarks=110, n_obs=1974, sends=113,
+                   current_cone_index=44, ate_published=0.110485,
+                   ate_graph=0.139777, map_err_median=0.024462),
+    "I1_b32": dict(closure_frame=212, n_landmarks=110, n_obs=1974, sends=113,
+                   current_cone_index=44, ate_published=0.101905,
+                   ate_graph=0.140121, map_err_median=0.025022),
+    "I2": dict(closure_frame=212, n_landmarks=142, n_obs=1974, sends=113,
+               current_cone_index=57, ate_published=0.113266,
+               ate_graph=0.141591, map_err_median=0.031187),
+    "I2_b16": dict(closure_frame=212, n_landmarks=115, n_obs=1974, sends=113,
+                   current_cone_index=46, ate_published=0.110796,
+                   ate_graph=0.139851, map_err_median=0.024268),
 }
 METRIC_ATOL_M = 1e-3        # ATE / map-error tolerance against the JAX numbers
+# The improved mode (tpuslam/runtime/config.py:145-170) as bench.py reports
+# it: I1 with 'nearest' association, dense (bench.py:177-198, :834-882); I2
+# with Mahalanobis gating through the association kernel
+IMPROVED = {"I1": {}, "I2": dict(association="mahalanobis", use_pallas_association=True)}
+# run (a key of REFERENCE) -> (configuration, block or None for per frame):
+# block 16 is bench.py:848's primary row, block 32 fires the periodic GN
+# mid-block (every 16)
+IMPROVED_RUNS = {"I1": ("I1", None), "I1_b16": ("I1", 16), "I1_b32": ("I1", 32),
+                 "I2": ("I2", None), "I2_b16": ("I2", 16)}
+# the JAX package's own contract between two paths whose gate decisions may
+# differ (tests/test_blocked_equivalence.py:192-208): landmarks within 2, and
+# published poses within 0.05 m. It holds a GPU run whose gate decision
+# flipped against the CPU run (the GN's CUDA sums are atomics, and the
+# periodic GN feeds the map later frames are gated against)
+CROSS_PATH_LANDMARKS, CROSS_PATH_POSE_M = 2, 0.05
+IMPROVED_LAPS_TIMED = 3     # the improved laps' rate: median of this many
+IMPROVED_TIMED = ("I1", "I1_b16", "I1_b32", "I2_b16")   # the improved laps timed
+FIRING_FRAME = 208          # frames before a periodic firing (keyframe 208 = 13 x 16)
 POSE_ATOL = 1e-3            # GPU vs CPU port, and kernel vs library GN solve
 CHOL_ATOL, CHOL_RTOL, CHOL_RECON_ATOL = 5e-4, 1e-3, 5e-3
 LAPS_TIMED = 5              # the lap rate is the median of this many laps (host-bound, noisy)
@@ -98,7 +144,7 @@ PEAK_FP32_FLOP_S, PEAK_HBM_BYTE_S = 67e12, 3.35e12
 # 64 on denser streams; and the pod-scale map the TPU kernel was built for
 # (scripts/exp_block_provider.py:104-110)
 ASSOC_SHAPES = {"lap": (64, 256), "blocked16": (512, 256), "blocked64": (2048, 256),
-                "pod": (512, 4096)}
+                "blocked16_b16": (256, 256), "pod": (512, 4096)}
 # the cluster sizes `--assoc-plans` times at each shape
 ASSOC_PLANS = (1, 2, 4, 8)
 
@@ -107,6 +153,10 @@ def configs():
     return {"first": SlamConfig(capacity=CAP),
             "nearest": SlamConfig(capacity=CAP, association="nearest",
                                   use_pallas_association=True)}
+
+
+def improved_configs():
+    return {name: SlamConfig.improved(capacity=CAP, **kw) for name, kw in IMPROVED.items()}
 
 
 def scenario():
@@ -130,6 +180,30 @@ def lap_metrics(track, scen, state, outs) -> dict:
         map_err_median=float(np.median(np.linalg.norm(
             lm[:, None, :] - track.cones_xy[None], axis=-1).min(axis=1))),
     )
+
+
+def improved_lap(cfg, block, obs, valid, poses):
+    """One lap of the improved mode: per frame when `block` is None."""
+    if block is None:
+        return run_pass(obs, valid, poses, cfg)
+    return run_pass_blocked(obs, valid, poses, cfg, block=block)
+
+
+def gate_margin(scen, cfg, frame) -> float:
+    """How close to the gate the association of `frame` was: the smallest
+    |cost - gate| / gate over its valid observations and the landmarks of
+    their type, against the map of the port's CPU per-frame run before it."""
+    obs, valid, poses = inputs(scen, "cpu")
+    st, _ = run_sequence(initial_state(CAP, "cpu"), obs[:frame], valid[:frame], poses[:frame],
+                         cfg)
+    g = st.graph
+    glob = cone_to_global(poses[frame], obs[frame, :, 0], obs[frame, :, 1], obs[frame, :, 2],
+                          cfg.lidar_to_cog, cfg.reference_compat)
+    diff = glob[:, None, :] - g.lm_xy[None, :, :]
+    cost, gate = _gate_cost(diff, torch.sum(diff * diff, dim=-1), st.lm_info_xy, cfg)
+    ok = (valid[frame][:, None] & g.lm_valid[None, :]
+          & (g.lm_type[None, :] == obs[frame, :, 3].to(torch.int32)[:, None]))
+    return float(((cost - gate).abs() / gate)[ok].min()) if bool(ok.any()) else float("inf")
 
 
 def check_metrics(name: str, got: dict) -> None:
@@ -194,7 +268,7 @@ def tie_pairs(m, seed):
 ASSOC_CHECKS = ([(n, m, 0, False) for n, m in ASSOC_SHAPES.values()] + [(61, 2000, 5, False)]
                 + [(n, m, 1, False) for n in (1, 129, 2049) for m in (0, 1, 4097)]
                 + [(64, 256, 3, True), (512, 256, 3, True), (2048, 256, 3, True),
-                   (512, 4096, 4, True)])
+                   (256, 256, 3, True), (512, 4096, 4, True)])
 
 
 def assoc_flop(n, m, mahalanobis):
@@ -358,6 +432,7 @@ class Smoke:
         self.runs = {}
         self.closure_s = None
         self.closure_graph = None
+        self.firing_graph = None
 
     def log(self, msg: str) -> None:
         print(msg, flush=True)
@@ -507,6 +582,125 @@ class Smoke:
         finally:
             blocked_mod.blocked_core, keyframe_mod.associate_kernel = core, kernel
 
+    # -- after blocked
+    def improved(self):
+        """The improved mode on the card, every run of IMPROVED_RUNS: held to
+        the JAX package's numbers for its path and block and to the port's
+        CPU run of the same path; the blocked runs do every frame in the
+        blocks; in I2 the association kernel's Mahalanobis form runs once per
+        keyframe per frame and once per block blocked, at blocked16_b16. A
+        gate decision that flips on the card is reported with its margin and
+        held to the cross-path contract instead."""
+        obs, valid, poses = inputs(self.scen, "cuda")
+        cpu = inputs(self.scen, "cpu")
+        t = obs.shape[0]
+        cfgs = improved_configs()
+        done, shapes = [], []
+        core, kernel = blocked_mod.blocked_core, keyframe_mod.associate_kernel
+
+        def recording_core(*a, **kw):
+            out = core(*a, **kw)
+            done.append(out[2])
+            return out
+
+        def recording_kernel(obs_xy, obs_type, lm_xy, *a, **kw):
+            shapes.append((obs_xy.shape[0], lm_xy.shape[0]))
+            return kernel(obs_xy, obs_type, lm_xy, *a, **kw)
+
+        paths = self.kernels["assoc"].setdefault("launches_by_path", {})
+        for run, (name, block) in IMPROVED_RUNS.items():
+            blocked_mod.blocked_core, keyframe_mod.associate_kernel = (recording_core,
+                                                                       recording_kernel)
+            done.clear()
+            shapes.clear()
+            A.launches = C.launches = 0
+            try:
+                got = improved_lap(cfgs[name], block, obs, valid, poses)
+                torch.cuda.synchronize()
+            finally:
+                blocked_mod.blocked_core, keyframe_mod.associate_kernel = core, kernel
+            counts = {"assoc": A.launches, "cholesky": C.launches}
+            seen, done_h = list(shapes), list(done)
+            metrics = lap_metrics(self.track, self.scen, *got)
+            self.log(f"improved {run}: " + json.dumps(metrics) + f" launches {counts}"
+                     + (f", done_upto {done_h} of {t} frames" if block else ""))
+            self.check_improved(run, cfgs[name], got, improved_lap(cfgs[name], block, *cpu),
+                                metrics)
+            kc = metrics["closure_frame"]
+            if block is None:
+                want_assoc = t if name == "I2" else 0
+                shape = ASSOC_SHAPES["lap"]
+            else:
+                t_pad = -(-t // block) * block
+                if done_h != [t_pad]:
+                    raise AssertionError(f"improved {run}: done_upto {done_h}, want [{t_pad}]: "
+                                         "frames fell to the per-frame path")
+                want_assoc = (kc // block + 1 + t_pad // block - (kc + 1) // block
+                              if name == "I2" else 0)
+                shape = ASSOC_SHAPES["blocked16_b16"]
+            if counts != {"assoc": want_assoc, "cholesky": 0} or len(seen) != want_assoc \
+                    or set(seen) - {shape}:
+                raise AssertionError(f"improved {run}: launches {counts}, shapes {set(seen)}; "
+                                     f"want {want_assoc} assoc launches at {shape}")
+            if name == "I2":
+                paths[f"improved_{run}"] = counts["assoc"]
+                self.log(f"improved {run}: {counts['assoc']} Mahalanobis assoc launches at "
+                         f"N x M = {shape}" + (", one per keyframe" if block is None
+                                               else ", one per block"))
+        state, _ = run_sequence(initial_state(CAP, "cuda"), obs[:FIRING_FRAME],
+                                valid[:FIRING_FRAME], poses[:FIRING_FRAME], cfgs["I1"])
+        self.firing_graph = state.graph
+
+    def check_improved(self, run, cfg, got, cpu, metrics):
+        """A GPU run of the improved mode against REFERENCE[run] and the
+        port's CPU run of the same path. Closure frame, edges, sends and
+        poses inserted are exact. Exact too, unless a gate decision flipped:
+        landmark count, current cone and every discrete output, the JAX
+        package's metrics within METRIC_ATOL_M and the values within
+        POSE_ATOL of the CPU run. A flip is logged with its first frame and
+        its margin to the gate, and the run is held to the cross-path
+        contract instead."""
+        want = REFERENCE[run]
+        (st_g, out_g), (st_c, out_c) = got, cpu
+        for k in ("closure_frame", "n_obs", "sends"):
+            if metrics[k] != want[k]:
+                raise AssertionError(f"improved {run}: {k} = {metrics[k]}, JAX package {want[k]}")
+        if int(st_g.graph.n_poses) != int(st_c.graph.n_poses):
+            raise AssertionError(f"improved {run}: n_poses differs from the CPU run")
+        series = [f for f in ("n_landmarks", "cone_type", "send", "loop_closed")
+                  if not torch.equal(getattr(out_g, f).cpu(), getattr(out_c, f))]
+        flipped = series or any(metrics[k] != want[k] for k in ("n_landmarks",
+                                                                 "current_cone_index"))
+        if not flipped:
+            check_metrics(run, metrics)
+            n = int(st_c.graph.n_obs)
+            for f in ("lm_type", "obs_lm", "obs_pose"):
+                if not torch.equal(getattr(st_g.graph, f)[:n].cpu(), getattr(st_c.graph, f)[:n]):
+                    raise AssertionError(f"improved {run}: graph.{f} differs from the CPU run")
+            for a, b, what in ((out_g.pose, out_c.pose, "published poses"),
+                               (st_g.graph.poses, st_c.graph.poses, "graph poses"),
+                               (st_g.graph.lm_xy, st_c.graph.lm_xy, "landmarks")):
+                torch.testing.assert_close(a.cpu(), b, atol=POSE_ATOL, rtol=0,
+                                           msg=f"improved {run}: {what}")
+            torch.testing.assert_close(st_g.lm_info_xy.cpu(), st_c.lm_info_xy, rtol=1e-4,
+                                       atol=1e-3, msg=f"improved {run}: lm_info_xy")
+            self.log(f"improved {run}: equal to the JAX package's numbers and, discrete "
+                     f"exact, values within {POSE_ATOL}, to the CPU run")
+            return
+        differs = (out_g.n_landmarks.cpu() != out_c.n_landmarks) \
+            | (out_g.cone_type.cpu() != out_c.cone_type).any(dim=1)
+        frame = int(torch.nonzero(differs)[0]) if bool(differs.any()) else len(differs) - 1
+        margin = gate_margin(self.scen, cfg, frame)
+        d = float(torch.linalg.norm(out_g.pose.cpu()[:, :2] - out_c.pose[:, :2], dim=1).max())
+        self.log(f"improved {run}: GATE FLIP against the CPU run ({series or 'final state'} "
+                 f"differ) from frame {frame}, smallest |cost - gate| / gate there "
+                 f"{margin:.3g}; landmarks {metrics['n_landmarks']} (JAX package "
+                 f"{want['n_landmarks']}), published poses within {d:.4g} m of the CPU run")
+        if abs(metrics["n_landmarks"] - want["n_landmarks"]) > CROSS_PATH_LANDMARKS \
+                or d > CROSS_PATH_POSE_M:
+            raise AssertionError(f"improved {run}: outside the cross-path contract "
+                                 f"(+-{CROSS_PATH_LANDMARKS} landmarks, {CROSS_PATH_POSE_M} m)")
+
     # -- 5
     def closure_solve(self):
         obs, valid, poses = inputs(self.scen, "cuda")
@@ -585,12 +779,18 @@ class Smoke:
     @staticmethod
     def laps(obs, valid, poses):
         """name -> one lap: the per-frame engine and the blocked pipeline
-        (block BLOCK), each in both configurations."""
+        (block BLOCK), each in both configurations, then the improved laps
+        of IMPROVED_TIMED."""
         out = {}
         for name, cfg in configs().items():
             out[name] = functools.partial(run_pass, obs, valid, poses, cfg)
             out[f"blocked {name}"] = functools.partial(run_pass_blocked, obs, valid, poses, cfg,
                                                        block=BLOCK)
+        cfgs = improved_configs()
+        for run in IMPROVED_TIMED:
+            name, block = IMPROVED_RUNS[run]
+            out[f"improved {run}"] = functools.partial(improved_lap, cfgs[name], block, obs,
+                                                       valid, poses)
         return out
 
     def timing(self):
@@ -599,9 +799,10 @@ class Smoke:
         lap_ms = {}
         for name, lap in self.laps(obs, valid, poses).items():
             lap()                                        # warm-up
-            laps = sorted(cuda_ms(lap, reps=1, warmup=False) for _ in range(LAPS_TIMED))
+            n_laps = IMPROVED_LAPS_TIMED if name.startswith("improved") else LAPS_TIMED
+            laps = sorted(cuda_ms(lap, reps=1, warmup=False) for _ in range(n_laps))
             lap_ms[name] = ms = laps[len(laps) // 2]
-            self.log(f"timing: {name} lap: median {ms:.1f} ms of {LAPS_TIMED} laps "
+            self.log(f"timing: {name} lap: median {ms:.1f} ms of {n_laps} laps "
                      f"(min {laps[0]:.1f}, max {laps[-1]:.1f}) for {t} frames = "
                      f"{t / ms * 1e3:.1f} frames/s [{self.card}]")
         self.assoc_timing()
@@ -769,6 +970,12 @@ class Smoke:
         self.log(f"timing: closure GN alone (cholesky_ex): median {ms:.1f} ms of 5, device busy "
                  f"{busy:.1f} ms, {kernels} kernel launches, {reads} device-to-host reads "
                  f"[{self.card}]")
+        firing = functools.partial(periodic_gn, self.firing_graph, improved_configs()["I1"])
+        ms = statistics.median(cuda_ms(firing, reps=1) for _ in range(5))
+        busy, kernels, reads = profile_counts(firing)
+        self.log(f"timing: one periodic window-GN firing alone (I1, window 64, graph after "
+                 f"{FIRING_FRAME} frames): median {ms:.2f} ms of 5, device busy {busy:.2f} ms, "
+                 f"{kernels} kernel launches, {reads} device-to-host reads [{self.card}]")
 
 
 def main() -> int:
@@ -783,7 +990,7 @@ def main() -> int:
         return 1
     smoke = Smoke()
     phases = (smoke.build, smoke.kernels_vs_plain, smoke.compat, smoke.kernel_association,
-              smoke.blocked, smoke.closure_solve, smoke.timing)
+              smoke.blocked, smoke.improved, smoke.closure_solve, smoke.timing)
     if sys.argv[1:] == ["--assoc-plans"]:
         phases = (smoke.build, smoke.assoc_plans, smoke.assoc_host)
     elif sys.argv[1:]:

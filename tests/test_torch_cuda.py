@@ -224,3 +224,51 @@ def test_blocked_skidpad_on_cuda_matches_cpu(cuda, name):
     np.testing.assert_allclose(sg.graph.poses.cpu().numpy(), sc.graph.poses.numpy(), atol=1e-3)
     np.testing.assert_allclose(sg.graph.lm_xy.cpu().numpy(), sc.graph.lm_xy.numpy(), atol=1e-3)
     np.testing.assert_allclose(og.cone_distance.cpu().numpy(), oc.cone_distance.numpy(), atol=1e-3)
+
+
+@pytest.mark.parametrize("name", ["I1", "I2"])
+@pytest.mark.parametrize("block", [None, 16], ids=["per_frame", "blocked16"])
+def test_improved_skidpad_on_cuda_matches_cpu(cuda, name, block):
+    """The improved mode (chip_smoke.IMPROVED) on a skidpad lap of 93
+    keyframes, per frame and at block 16, on the card against the port's
+    CPU run, within chip_smoke.py's contract for the phase `improved`:
+    closure, sends, edges and poses inserted exact; landmarks, current cone
+    and every discrete output exact unless a gate decision flipped (the
+    GN's CUDA sums are atomics), and then landmarks within 2 and published
+    poses within 0.05 m; values within chip_smoke.POSE_ATOL otherwise. I2
+    launches the kernel's Mahalanobis form once per keyframe, or per block."""
+    scen = simulate(skidpad(), SimConfig(laps=1.3, keyframe_dt=0.1, speed=8.0, max_range=20.0,
+                                         seed=4))
+    cfg = SlamConfig.improved(capacity=GraphCapacity(256, 128, 4096), **chip_smoke.IMPROVED[name])
+    runs = {}
+    for dev in ("cpu", cuda):
+        before = A.launches
+        runs[str(dev)] = chip_smoke.improved_lap(cfg, block, *chip_smoke.inputs(scen, dev))
+        launched = A.launches - before
+    (sc, oc), (sg, og) = runs["cpu"], runs["cuda"]
+    t = len(scen.times)
+    assert bool(sg.loop_closure_complete)
+    if name == "I2":
+        kc = int(torch.nonzero(oc.loop_closed)[0])
+        assert launched == (t if block is None else
+                            kc // block + 1 + -(-t // block) - (kc + 1) // block), launched
+    for f in ("send", "loop_closed"):
+        assert torch.equal(getattr(og, f).cpu(), getattr(oc, f)), f
+    for f in ("n_obs", "n_poses"):
+        assert torch.equal(getattr(sg.graph, f).cpu(), getattr(sc.graph, f)), f
+    flipped = not (torch.equal(og.n_landmarks.cpu(), oc.n_landmarks)
+                   and torch.equal(og.cone_type.cpu(), oc.cone_type)
+                   and torch.equal(sg.current_cone_index.cpu(), sc.current_cone_index))
+    if flipped:
+        assert abs(int(sg.graph.n_landmarks) - int(sc.graph.n_landmarks)) \
+            <= chip_smoke.CROSS_PATH_LANDMARKS
+        d = torch.linalg.norm(og.pose.cpu()[:, :2] - oc.pose[:, :2], dim=1)
+        assert float(d.max()) <= chip_smoke.CROSS_PATH_POSE_M
+        return
+    n = int(sc.graph.n_obs)
+    for f in ("obs_lm", "obs_pose"):
+        assert torch.equal(getattr(sg.graph, f)[:n].cpu(), getattr(sc.graph, f)[:n]), f
+    atol = chip_smoke.POSE_ATOL
+    np.testing.assert_allclose(og.pose.cpu().numpy(), oc.pose.numpy(), atol=atol)
+    np.testing.assert_allclose(sg.graph.poses.cpu().numpy(), sc.graph.poses.numpy(), atol=atol)
+    np.testing.assert_allclose(sg.graph.lm_xy.cpu().numpy(), sc.graph.lm_xy.numpy(), atol=atol)

@@ -1,6 +1,7 @@
 """The port's two kernels on the CPU: the plain PyTorch twins against the
 JAX package's Pallas kernels (interpret mode), the wrappers' CPU routing
-and launch counters, and the configurations the port refuses. The CUDA
+and launch counters, and the configurations the port refuses and those it
+refused before the improved mode was ported. The CUDA
 kernels themselves are tested in tests/test_torch_cuda.py."""
 import jax.numpy as jnp
 import numpy as np
@@ -40,6 +41,8 @@ ASSOC_CASES = {
     "multi_tile": dict(world=dict(n=61, m=2000, seed=5), gate2=1.44, mahalanobis=False),
     "blocked": dict(smoke=dict(n=2048, m=256, seed=6), gate2=1.44, mahalanobis=False),
     "blocked16": dict(smoke=dict(n=512, m=256, seed=11), gate2=1.44, mahalanobis=False),
+    "blocked16_b16_mahalanobis": dict(smoke=dict(n=256, m=256, seed=12), gate2=9.21,
+                                      mahalanobis=True),
     "pod": dict(smoke=dict(n=512, m=4096, seed=7), gate2=1.44, mahalanobis=False),
     "pod_mahalanobis": dict(smoke=dict(n=512, m=4096, seed=8), gate2=9.21, mahalanobis=True),
     "ties": dict(smoke=dict(n=512, m=4096, seed=9, ties=True), gate2=1.44, mahalanobis=False),
@@ -100,12 +103,37 @@ def test_provider_associate_masks_match_jax(seed):
     obs_t = torch.tensor(obs)
     got = _provider_associate(torch.tensor(oxy), obs_t[:, 3], torch.tensor(valid),
                               torch.tensor(lxy), torch.tensor(lt),
-                              torch.tensor(n_lm), cfg)
+                              torch.tensor(n_lm), None, cfg)
     np.testing.assert_array_equal(got[0].numpy(), np.asarray(want[0]))
     np.testing.assert_array_equal(got[1].numpy(), np.asarray(want[1]))
     assert got[1].any() and not got[1][~torch.tensor(valid)].any()
     assert (got[0][got[1]] < int(n_lm)).all()
     np.testing.assert_allclose(got[2].numpy(), np.asarray(want[2]), rtol=1e-5)
+
+
+@pytest.mark.parametrize("seed", [11, 12])
+def test_provider_associate_mahalanobis_matches_jax(seed):
+    """The Mahalanobis form of the provider: the packed innovation
+    information of each landmark, and the scaled-Euclidean cost of those
+    with no information yet (a quarter of them), as the JAX package's."""
+    oxy, obs, valid, lxy, lt, n_lm = (
+        t.numpy() for t in chip_smoke.assoc_masked_world(seed, device="cpu"))
+    info = _cov(len(lxy), seed) * 40.0
+    info[::4] = 0.0
+    jcfg = JaxSlamConfig(association="mahalanobis", use_pallas_association=True)
+    want = jax_provider_associate(jnp.asarray(oxy), jnp.asarray(obs[:, 3]).astype(jnp.int32),
+                                  jnp.asarray(valid), jnp.asarray(lxy), jnp.asarray(lt),
+                                  jnp.asarray(np.arange(len(lxy)) < n_lm), jnp.asarray(info),
+                                  jcfg)
+    cfg = SlamConfig(association="mahalanobis", use_pallas_association=True)
+    got = _provider_associate(torch.tensor(oxy), torch.tensor(obs)[:, 3], torch.tensor(valid),
+                              torch.tensor(lxy), torch.tensor(lt), torch.tensor(n_lm),
+                              torch.tensor(info), cfg)
+    np.testing.assert_array_equal(got[0].numpy(), np.asarray(want[0]))
+    np.testing.assert_array_equal(got[1].numpy(), np.asarray(want[1]))
+    assert got[1].any() and not got[1][~torch.tensor(valid)].any()
+    matched = got[1].numpy()
+    np.testing.assert_allclose(got[2].numpy()[matched], np.asarray(want[2])[matched], rtol=1e-5)
 
 
 def test_associate_masked_equals_type_sentinels():
@@ -198,10 +226,11 @@ def test_first_association_with_kernel_runs_dense(monkeypatch):
 
 
 @pytest.mark.parametrize("field,value", [
-    ("association", "mahalanobis"), ("use_gps_prior", True), ("periodic_gn_every", 4),
-    ("localizer_refine", True), ("mapping_publish_refine", True),
-    ("vectorized_mapping", False), ("use_ekf_fusion", True), ("assoc_mesh", object())])
+    ("use_ekf_fusion", True),
+    pytest.param("assoc_mesh", object(), id="assoc_mesh-value7")])
 def test_unported_config_raises(field, value):
+    """The EKF fusion and the mesh-sharded map are the only configurations
+    the port refuses, by name."""
     cap = GraphCapacity(8, 8, 32)
     cfg = SlamConfig(capacity=cap)
     kw = {}
@@ -212,3 +241,24 @@ def test_unported_config_raises(field, value):
     with pytest.raises(NotImplementedError, match=field):
         perform_keyframe(initial_state(cap, "cpu"), torch.zeros(4, 4),
                          torch.zeros(4, dtype=torch.bool), torch.zeros(3), cfg, **kw)
+
+
+@pytest.mark.parametrize("field,value", [
+    ("association", "mahalanobis"), ("use_gps_prior", True), ("periodic_gn_every", 4),
+    ("localizer_refine", True), ("mapping_publish_refine", True),
+    ("vectorized_mapping", False)])
+def test_formerly_refused_field_runs(field, value):
+    """Each field the port refused before the improved mode was ported, set
+    alone on the reference-compat configuration: the port runs the first
+    frames of the skidpad lap as the JAX package does."""
+    from tests.test_torch_pipeline import (
+        _assert_same, _closure, _frames, _jax_run, _np_tree, _port_run, _scenario)
+    from tpuslam.backend.graph import GraphCapacity as JaxCap
+    from tpuslam_torch.frontend.state import state_to_numpy
+
+    _, scen, cap = _scenario("skidpad")
+    frames = _frames(scen, 0, 24)
+    js, jo = _jax_run(JaxSlamConfig(capacity=JaxCap(*cap), **{field: value}), frames)
+    want = (_np_tree(js), _np_tree(jo))
+    st, out = _port_run(SlamConfig(capacity=GraphCapacity(*cap), **{field: value}), frames)
+    _assert_same((state_to_numpy(st), _np_tree(out)), want, _closure(want[1]))

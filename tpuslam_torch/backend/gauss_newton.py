@@ -14,10 +14,13 @@ order (and the last bits) vary from run to run.
 Everything runs in full FP32. `matmul_precision="highest"` is the only
 supported setting and requires TF32 to be off for CUDA matmuls.
 
+The fixed-lag window (`window_gn_step`) gathers its W trailing poses and
+EW trailing edges at device-side indices, so it needs no host read; its
+per-landmark counts and its [3W, L] coupling are `index_add_` scatters.
+
 Host synchronisation: each `gn_step` reads (n_poses, n_obs) once to pick its
-buckets, and `optimize` reads the update size once per iteration for its
-early exit. Fixed-lag windows (`window_gn_step`, `optimize_window`) are not
-ported yet.
+buckets, and `optimize` and `optimize_window` read the update size once per
+iteration for their early exit.
 """
 from __future__ import annotations
 
@@ -32,7 +35,7 @@ from tpuslam_torch.backend.residuals import landmark_residuals, odometry_residua
 from tpuslam_torch.geometry import se2
 
 __all__ = ["GNConfig", "assemble", "schur_solve", "schur_solve_split",
-           "gn_step", "optimize", "chi2"]
+           "gn_step", "optimize", "window_gn_step", "optimize_window", "chi2"]
 
 
 @dataclass(frozen=True)
@@ -288,17 +291,173 @@ def gn_step(g: FactorGraph, cfg: GNConfig) -> FactorGraph:
     return dataclasses.replace(g, poses=poses, lm_xy=g.lm_xy + dl)
 
 
-def optimize(g: FactorGraph, cfg: GNConfig, enable=None) -> FactorGraph:
-    """Run up to `cfg.iterations` GN iterations, stopping early once an
+def _iterate(g: FactorGraph, cfg: GNConfig, step, enable) -> FactorGraph:
+    """Up to `cfg.iterations` calls of `step`, stopping early once an
     iteration's max |update| (poses and landmarks) drops to
-    `cfg.early_exit_tol` (0 = never). `enable=False` returns `g` unchanged."""
+    `cfg.early_exit_tol` (0 = never); `enable=False` returns `g`."""
     if enable is not None and not bool(enable):
         return g
     for _ in range(cfg.iterations):
-        g2 = gn_step(g, cfg)
+        g2 = step(g)
         delta = torch.maximum(torch.max(torch.abs(g2.poses - g.poses)),
                               torch.max(torch.abs(g2.lm_xy - g.lm_xy)))
         g = g2
         if cfg.early_exit_tol > 0.0 and float(delta) <= cfg.early_exit_tol:
             break
     return g
+
+
+def optimize(g: FactorGraph, cfg: GNConfig, enable=None) -> FactorGraph:
+    """Run up to `cfg.iterations` GN iterations, stopping early once an
+    iteration's max |update| (poses and landmarks) drops to
+    `cfg.early_exit_tol` (0 = never). `enable=False` returns `g` unchanged."""
+    return _iterate(g, cfg, lambda gg: gn_step(gg, cfg), enable)
+
+
+def window_gn_step(g: FactorGraph, cfg: GNConfig, window: int, edge_window: int,
+                   landmarks: bool = True, lm_prior=None, end=None,
+                   end_obs=None) -> FactorGraph:
+    """One fixed-lag GN iteration: refine the trailing `window` poses (and,
+    with `landmarks=True`, the map) with everything older held constant.
+
+    The system is the window's odometry chain, whose boundary edge (the
+    fixed pose before the window to window row 0) contributes only its
+    J_j half, the GPS/heading priors of window poses, and the landmark
+    edges among the trailing `edge_window` rows whose pose lies in the
+    window; the first `fix_first_poses` global rows are clamped as in
+    `gn_step`. With `landmarks=True` every landmark joins the system: an
+    edge's landmark Jacobian is a rotation, so its Hll is `lm_info * n *
+    I2` with n the landmark's edge count before `end_obs`, and the
+    out-of-window edges act as a prior centred at `lm_prior` (None: at the
+    current estimate, which gives no gradient). The reduced [3W, 3W]
+    system goes through `schur_solve_split`. With `landmarks=False` the
+    map is constant and the pose system is factored by
+    `torch.linalg.cholesky_ex`.
+
+    `end` / `end_obs` (int32 tensors) anchor the window at a past pose and
+    edge count instead of the graph head; later poses and edges are left
+    out and receive an exact-zero update."""
+    W, EW = window, edge_window
+    P, L, E = g.poses.shape[0], g.lm_xy.shape[0], g.obs_pose.shape[0]
+    if W > P or EW > E:
+        raise ValueError(f"window {W} / edge window {EW} exceed the graph's capacity "
+                         f"({P} poses, {E} edges)")
+    dtype, dev = g.poses.dtype, g.poses.device
+    n = g.n_poses if end is None else end
+    e_stop = g.n_obs if end_obs is None else end_obs
+    w0 = torch.clamp(n - W, min=0)
+    kg = w0 + torch.arange(W, device=dev)                 # global pose index per row
+    kgl = kg.long()
+    poses_w = g.poses[kgl]
+
+    # odometry chain within the window, plus the boundary edge's J_j half
+    prev0 = g.poses[torch.clamp(w0 - 1, min=0).reshape(1).long()]
+    p_prev = torch.cat([prev0, poses_w[:-1]])
+    odo_valid = (kg >= 1) & (kg < n)
+    r_o, j_oi, j_oj = odometry_residuals(p_prev, poses_w, g.odo_meas[kgl])
+    w_o = cfg.odo_info * odo_valid.to(dtype) * g.odo_w[kgl]
+    w3 = w_o[:, None, None]
+    jti = j_oi.transpose(-1, -2)
+    jtj = j_oj.transpose(-1, -2)
+    a_ii = w3 * (jti @ j_oi)
+    a_jj = w3 * (jtj @ j_oj)
+    h_off = w3 * (jti @ j_oj)                             # block (r-1, r)
+    g_i = w_o[:, None] * (jti @ r_o[..., None])[..., 0]
+    g_j = w_o[:, None] * (jtj @ r_o[..., None])[..., 0]
+    h_diag = torch.cat([a_jj[:-1] + a_ii[1:], a_jj[-1:]])
+    h_off = torch.cat([torch.zeros_like(h_off[:1]), h_off[1:]])
+    gp = torch.cat([g_j[:-1] + g_i[1:], g_j[-1:]])
+
+    # GPS/heading priors of window poses
+    prior_info_w = g.prior_info[kgl]
+    pose_valid = (kg < n).to(dtype)
+    ixy = prior_info_w[:, 0] * pose_valid
+    ith = prior_info_w[:, 1] * pose_valid
+    eye_xy = torch.diag(torch.tensor([1.0, 1.0, 0.0], dtype=dtype, device=dev))
+    eye_th = torch.diag(torch.tensor([0.0, 0.0, 1.0], dtype=dtype, device=dev))
+    h_diag = h_diag + ixy[:, None, None] * eye_xy + ith[:, None, None] * eye_th
+    r_pr = poses_w - g.prior_pose[kgl]
+    r_pr = torch.cat([r_pr[:, :2], se2.wrap_angle(r_pr[:, 2:])], dim=1)
+    gp = gp + r_pr * torch.stack([ixy, ixy, ith], dim=-1)
+
+    # trailing landmark edges whose pose lies in the window
+    e0 = torch.clamp(e_stop - EW, min=0)
+    ke = (e0 + torch.arange(EW, device=dev)).long()
+    op = g.obs_pose[ke]
+    ol = torch.clamp(g.obs_lm[ke].long(), 0, L - 1)
+    in_win = (ke < e_stop) & (op >= w0)
+    w_l = cfg.lm_info * in_win.to(dtype)
+    local = torch.clamp(op - w0, 0, W - 1).long()
+    r_l, j_lp, j_ll = landmark_residuals(poses_w[local], g.lm_xy[ol], g.obs_xy[ke])
+    wl3 = w_l[:, None, None]
+    jtp = j_lp.transpose(-1, -2)
+    h_diag = h_diag.index_add(0, local, wl3 * (jtp @ j_lp))
+    gp = gp.index_add(0, local, w_l[:, None] * (jtp @ r_l[..., None])[..., 0])
+
+    # gauge clamping by global index (the rows gn_step clamps)
+    free = (kg >= cfg.fix_first_poses) & (kg < n)
+    fpb = free.to(dtype)[:, None, None]
+    eye3 = torch.eye(3, dtype=dtype, device=dev)
+    h_diag = h_diag * fpb + eye3 * (1.0 - fpb)
+    prev_free = torch.cat([free.new_zeros(1), free[:-1]])
+    h_off = h_off * (free & prev_free).to(dtype)[:, None, None]
+    gp = gp * free.to(dtype)[:, None]
+    if cfg.damping:
+        h_diag = h_diag + eye3 * cfg.damping * fpb
+
+    hpp = densify_hpp(h_diag, h_off)
+    if landmarks:
+        # Hll from each landmark's total edge count (the out-of-window
+        # edges' marginal prior plus the in-window ones), the coupling and
+        # gl from the in-window edges only
+        kl = torch.arange(L, device=dev)
+        lm_all = g.obs_lm.long()
+        counted = (torch.arange(E, device=dev) < e_stop) & (lm_all >= 0) & (lm_all < L)
+        n_tot = torch.zeros(L + 1, dtype=dtype, device=dev).index_add(
+            0, torch.where(counted, lm_all, L), counted.to(dtype))[:L]
+        flm = ((kl >= cfg.fix_first_landmarks) & (kl < g.n_landmarks)).to(dtype)
+        eye2 = torch.eye(2, dtype=dtype, device=dev)
+        hll_d = cfg.lm_info * n_tot * flm
+        hll = torch.where(hll_d > 0, hll_d, 1.0)[:, None, None] * eye2
+        if cfg.damping:
+            hll = hll + eye2 * cfg.damping * flm[:, None, None]
+        w_e = wl3 * (jtp @ j_ll)                             # [EW, 3, 2]
+        wc = torch.zeros((W * L, 3, 2), dtype=dtype, device=dev).index_add(
+            0, local * L + ol, w_e)
+        wc = wc.reshape(W, L, 3, 2).permute(0, 2, 1, 3).reshape(3 * W, L, 2)
+        mask = free.to(dtype).repeat_interleave(3)[:, None] * flm[None, :]
+        jtl = j_ll.transpose(-1, -2)
+        gl = torch.zeros((L, 2), dtype=dtype, device=dev).index_add(
+            0, ol, w_l[:, None] * (jtl @ r_l[..., None])[..., 0]) * flm[:, None]
+        if lm_prior is not None:
+            # the marginalized edges' restoring gradient, centred at lm_prior
+            n_in = torch.zeros(L, dtype=dtype, device=dev).index_add(0, ol, in_win.to(dtype))
+            n_out = torch.clamp(n_tot - n_in, min=0.0)
+            gl = gl + (cfg.lm_info * n_out * flm)[:, None] * (g.lm_xy - lm_prior)
+        dp, dl = schur_solve_split(hpp, wc[..., 0] * mask, wc[..., 1] * mask, hll,
+                                   gp.reshape(-1), gl)
+        lm_xy = g.lm_xy + dl
+    else:
+        c = torch.linalg.cholesky_ex(hpp).L
+        dp = torch.cholesky_solve(-gp.reshape(-1, 1), c)[:, 0]
+        lm_xy = g.lm_xy
+    new_w = poses_w + dp.reshape(W, 3)
+    # clamped rows get an exact-zero update; wrap_angle is not a bit-exact
+    # identity in f32, so they keep their value
+    theta = torch.where(free, se2.wrap_angle(new_w[:, 2]), new_w[:, 2])
+    new_w = torch.cat([new_w[:, :2], theta[:, None]], dim=1)
+    return dataclasses.replace(g, poses=g.poses.index_put((kgl,), new_w), lm_xy=lm_xy)
+
+
+def optimize_window(g: FactorGraph, cfg: GNConfig, window: int, edge_window: int,
+                    enable=None, landmarks: bool = True, end=None,
+                    end_obs=None) -> FactorGraph:
+    """`optimize`'s loop around `window_gn_step` (fixed-lag refinement).
+    With `landmarks=True` the out-of-window edges' prior is centred at the
+    entry estimate of the map for every iteration. `enable=False` returns
+    `g` unchanged; `end` / `end_obs` as in `window_gn_step`."""
+    _check_precision(cfg, g.poses)
+    lm_prior = g.lm_xy if landmarks else None
+    return _iterate(g, cfg, lambda gg: window_gn_step(
+        gg, cfg, window, edge_window, landmarks=landmarks, lm_prior=lm_prior,
+        end=end, end_obs=end_obs), enable)

@@ -20,12 +20,13 @@ A pass runs in three parts, as in the JAX package:
 The JAX package writes each part as a straight-line `lax.scan` body with
 elementwise state selects, because a conditional in a TPU loop costs
 whether taken or not. Here the blocks are a Python loop: each block computes
-its candidate state out of place, reads (fallback, closure, closure frame)
-from the device in one transfer, and a Python branch keeps the old state or
-the new one. Blocks the JAX package runs as exact no-ops (mapping blocks
-after the closure, localization blocks before it) do not run, and the edge
-rows are appended per block. Host reads per pass: one for the compaction
-width, one per block, and the closure GN's own.
+its candidate state out of place, reads (fallback, closure, closure frame
+and, with a periodic GN, which frames fire) from the device in one
+transfer, and a Python branch keeps the old state or the new one. Blocks
+the JAX package runs as exact no-ops (mapping blocks after the closure,
+localization blocks before it) do not run, and the edge rows are appended
+per block. Host reads per pass: one for the compaction width, one per
+block, and the GNs' own (one per iteration).
 
 A write the JAX package drops with ``mode="drop"`` (a landmark slot, pose
 or edge past its capacity) is sent to a spare row past the end of the
@@ -38,15 +39,34 @@ observations than the compaction width) stop the pass at their first
 frame, `done_upto`, and `run_sequence_blocked` finishes the remaining
 frames with the per-frame `perform_keyframe`.
 
-On the CPU, results equal `run_sequence`'s bit for bit
-(tests/test_torch_blocked.py); on CUDA the closure GN's sums are atomics,
-so values after it may differ in the last bits from run to run.
-Supported: the reference-compat configuration and 'first' / 'nearest'
-association, dense or, for 'nearest', through the association kernel
+The improved mode runs here as in the JAX package:
+
+- **GPS/heading priors** go in with the block's poses; the localizer refine
+  runs for every frame of a localization block, and the publish refine for
+  every frame of a mapping block.
+- **Periodic GN** in two regimes (`_mapping_periodic`): a period that is a
+  whole number of blocks fires only on a block's last frame, exactly where
+  the per-frame path fires; a period that divides the block runs each
+  firing's fixed-lag solve after the block's mapping, anchored at its
+  firing frame's pose and edge counts, and frames after a firing see the
+  refined map only from the next block on. A firing the blocks cannot
+  reproduce (mid-block in the first regime, or on the closure frame)
+  stops the blocks there.
+- **Mahalanobis association** gates a block against the information at
+  block start, so it lags the per-frame path by up to block - 1 frames
+  (exact at block 1); in-block creations compete at the zero-information
+  scaled-Euclidean cost, and the block's committed observations add their
+  information once.
+
+On the CPU, results equal `run_sequence`'s bit for bit wherever the JAX
+package's blocked path equals its per-frame path (tests/test_torch_blocked.py);
+on CUDA the GN's sums are atomics, so values after a GN may differ in the
+last bits from run to run. Association is 'first', 'nearest' or
+'mahalanobis', dense or, for the last two, through the association kernel
 (`use_pallas_association`), which then runs once per block over all its
 observations. `run_sequence_blocked` raises `ValueError` where the JAX
 package's does (`blocked_supported`), and `NotImplementedError`, naming the
-field, for what the port does not run yet.
+field, for the EKF fusion and `assoc_mesh`, which are not ported yet.
 """
 from __future__ import annotations
 
@@ -57,8 +77,9 @@ import torch
 from tpuslam_torch.backend import gauss_newton as gn
 from tpuslam_torch.backend import graph as G
 from tpuslam_torch.frontend.keyframe import (
-    KeyframeOutputs, _body_xy, _check_supported, _first_index, _gn_config,
-    _prefix_argmin_exclusive, _provider_associate, _use_assoc_kernel,
+    KeyframeOutputs, _add_info, _body_xy, _check_supported, _first_index, _gate_cost,
+    _gn_config, _obs_information, _periodic_due, _pose_refine_rows, _prefix_argmin_exclusive,
+    _prior_info, _provider_associate, _publish_refine, _use_assoc_kernel, periodic_gn,
 )
 from tpuslam_torch.frontend.pipeline import run_sequence
 from tpuslam_torch.frontend.state import SlamState, initial_state
@@ -74,8 +95,10 @@ _I32 = torch.int32
 
 
 def _midblock_gn(cfg: SlamConfig, block: int) -> bool:
-    """True when periodic GN fires at sub-boundaries inside a block (the
-    JAX package's mid-block firing; not ported yet)."""
+    """True when the periodic GN fires at sub-boundaries inside a block: its
+    period divides the block, and each block runs up to block / period
+    fixed-lag solves after its mapping, each anchored at its firing
+    frame's pose and edge counts."""
     return (0 < cfg.periodic_gn_every < block
             and block % cfg.periodic_gn_every == 0
             and cfg.periodic_gn_window > 0)
@@ -131,13 +154,20 @@ def _pose_insert_plan(g, poses, ok_pose):
     return pose_idx, odo
 
 
-def _scatter_poses(g, poses, odo, pose_idx, ins):
-    """Masked block pose insertion (no GPS priors: not ported yet)."""
+def _scatter_poses(g, poses, odo, pose_idx, ins, cfg: SlamConfig):
+    """Masked block pose insertion; with `use_gps_prior` the inserted rows
+    get their absolute GPS/heading priors, as `graph.add_pose` gives them."""
     cap_p = g.poses.shape[0]
     to = torch.where(ins & (pose_idx < cap_p), pose_idx, cap_p).long()
-    return dataclasses.replace(
+    g = dataclasses.replace(
         g, poses=_drop_set(g.poses, to, poses), odo_meas=_drop_set(g.odo_meas, to, odo),
         n_poses=g.n_poses + torch.sum(ins, dtype=_I32))
+    info = _prior_info(cfg)
+    if info is not None:
+        g = dataclasses.replace(
+            g, prior_pose=_drop_set(g.prior_pose, to, poses),
+            prior_info=_drop_set(g.prior_info, to, poses.new_tensor(info).expand(len(poses), 2)))
+    return g
 
 
 def _compact_observations(obs_seq, valid_seq, nc: int):
@@ -174,13 +204,14 @@ def _block_glob(obs, poses, cfg: SlamConfig):
 
 
 def _inblock_duplicates(glob_k, otype_k, frame_of, cand, snap_match, cost_snap,
-                        thresh2, cfg: SlamConfig):
+                        thresh2, gate, cfg: SlamConfig):
     """In-block creations and duplicate representatives over the flattened
     [BN] observation axis (the JAX package's naive form: a [BN, BN] pair
     mask and a fixpoint over it). Candidates are taken before closure
     suppression, which the caller applies afterwards. `cost_snap` is the
-    phase-A matched cost ('nearest') or None ('first'). Returns (is_new,
-    use_ib, dup_same, rep_prev, rep_same, matched_pf)."""
+    phase-A matched cost in the units of `gate` ('nearest', 'mahalanobis')
+    or None ('first'). Returns (is_new, use_ib, dup_same, rep_prev,
+    rep_same, matched_pf)."""
     BN = glob_k.shape[0]
     gd = glob_k[:, None, :] - glob_k[None, :, :]
     gd2 = torch.sum(gd * gd, dim=-1)
@@ -195,11 +226,16 @@ def _inblock_duplicates(glob_k, otype_k, frame_of, cand, snap_match, cost_snap,
     prev_ok = rep_ok & (frame_of[None, :] < frame_of[:, None])
     same_ok = rep_ok & (frame_of[None, :] == frame_of[:, None])
     prev_any = torch.any(prev_ok, dim=1)
-    if cfg.association == "nearest":
+    if cfg.association in ("nearest", "mahalanobis"):
         gd2_prev = torch.where(prev_ok, gd2, _INF)
         rep_prev = torch.argmin(gd2_prev, dim=1).to(_I32)
+        ib_cost = torch.min(gd2_prev, dim=1).values
+        if cfg.association == "mahalanobis":
+            # an in-block creation has no information at block start, so it
+            # competes at the zero-information scaled-Euclidean cost
+            ib_cost = ib_cost * (gate / thresh2)
         # strict <: ties go to the snapshot landmark (the lower index)
-        use_ib = prev_any & (torch.min(gd2_prev, dim=1).values < cost_snap)
+        use_ib = prev_any & (ib_cost < cost_snap)
     else:
         rep_prev = _first_index(prev_ok)
         use_ib = prev_any & ~snap_match
@@ -213,10 +249,15 @@ def _mapping_block(state: SlamState, obs, valid, poses, okp, boot_ok, overflow,
                    cfg: SlamConfig):
     """Mapping-mode block (reference src/slam.cpp:552-635) without GN: on
     a closure, frames up to the closure frame commit and the map freezes;
-    the caller runs the closure GN. Returns (new_state, outputs [B], aux)
-    with aux's `fallback`, `closure_any` and `kc_frame` (B when no closure)
-    the three values the caller reads, and the per-frame `cur_series` and
-    `n_lm_series`."""
+    the caller runs the closure GN. Mahalanobis gating uses the information
+    at block start (the per-frame path's, lagged by up to block - 1
+    frames; exact at block 1), and the block's committed observations add
+    theirs once. Returns (new_state, outputs [B], aux) with aux's
+    `fallback`, `closure_any` and `kc_frame` (B when no closure) the values
+    the caller reads, and the per-frame series the periodic GN and the
+    closure patch use: `cur_series`, `n_lm_series`, `ins`, `n_pose_series`,
+    `n_obs_series` and `pub_rows` (landmark index and matched flag per
+    observation)."""
     g0 = state.graph
     B, N = valid.shape
     BN = B * N
@@ -241,16 +282,20 @@ def _mapping_block(state: SlamState, obs, valid, poses, okp, boot_ok, overflow,
     boot = (n_lm0 == 0) & boot_ok[0] & okp[0]
     g = G.add_landmark(g0, glob_k[0], otype_k[0], enable=boot)
 
-    # phase A: association against the block-start (post-boot) map
+    # phase A: association against the block-start (post-boot) map; the
+    # boot landmark's zero information row gives it the per-frame path's
+    # scaled-Euclidean bootstrap cost
     if _use_assoc_kernel(cfg):
         j_snap, snap_match, cost = _provider_associate(
-            glob_k, obs_k[:, 3], valid_k, g.lm_xy, g.lm_type, g.n_landmarks, cfg)
+            glob_k, obs_k[:, 3], valid_k, g.lm_xy, g.lm_type, g.n_landmarks,
+            state.lm_info_xy, cfg)
+        gate = cfg.mahalanobis_gate if cfg.association == "mahalanobis" else thresh2
         cost_snap = torch.where(snap_match, cost, _INF)
     else:
         diff = glob_k[:, None, :] - g.lm_xy[None, :, :]
-        cost = torch.sum(diff * diff, dim=-1)
+        cost, gate = _gate_cost(diff, torch.sum(diff * diff, dim=-1), state.lm_info_xy, cfg)
         ok = ((g.lm_type[None, :] == otype_k[:, None]) & g.lm_valid[None, :]
-              & (cost < cfg.same_cone_threshold ** 2) & valid_k[:, None])
+              & (cost < gate) & valid_k[:, None])
         if cfg.association == "first":
             j_snap = _first_index(ok)
         else:
@@ -264,7 +309,7 @@ def _mapping_block(state: SlamState, obs, valid, poses, okp, boot_ok, overflow,
     # in-block creations and duplicate representatives
     cand = valid_k & ~snap_match & (d2car_k < cfg.cone_mapping_threshold)
     is_new, use_ib, dup_same, rep_prev, rep_same, matched_pf = _inblock_duplicates(
-        glob_k, otype_k, frame_of, cand, snap_match, cost_snap, thresh2, cfg)
+        glob_k, otype_k, frame_of, cand, snap_match, cost_snap, thresh2, gate, cfg)
     new_i = is_new.to(_I32)
     slot_self = g.n_landmarks + torch.cumsum(new_i, 0, dtype=_I32) - new_i
     row_rep = torch.where(use_ib, rep_prev,
@@ -307,7 +352,7 @@ def _mapping_block(state: SlamState, obs, valid, poses, okp, boot_ok, overflow,
     is_new_s = is_new & ~closed_before
     dup_same_s = dup_same & ~closed_before
     ins = okp & (fidx <= kc_frame)
-    g = _scatter_poses(g, poses, odo_f, pose_idx_f, ins)
+    g = _scatter_poses(g, poses, odo_f, pose_idx_f, ins, cfg)
 
     # landmark writes: disjoint slots, those past the capacity dropped
     scatter_to = torch.where(is_new_s & slot_ok, slot, cap_l).long()
@@ -334,22 +379,37 @@ def _mapping_block(state: SlamState, obs, valid, poses, okp, boot_ok, overflow,
         obs_xy=_drop_set(g.obs_xy, dest, torch.cat([body_k[:1], body_k])),
         n_obs=torch.clamp(n_obs0 + torch.sum(keep_i, dtype=_I32), max=cap_e))
 
+    # per-landmark information (Mahalanobis): the committed observations'
+    # sums, added once for the block
+    lm_info = state.lm_info_xy
+    if cfg.association == "mahalanobis":
+        lm_info = _add_info(lm_info, torch.where(keep, target, cap_l).long(),
+                            _obs_information(glob_k, poses[frame_l], d2car_k, cfg))
+
     # committed currentConeIndex series
     vals_cur = torch.where(matched | (dup_same_s & slot_ok), d2car_k, _INF).reshape(B, N)
     min_cur, arg_cur = torch.min(vals_cur, dim=1)
     cur_after = _last_valid_inclusive(state.current_cone_index, min_cur < 100.0,
                                       target_f[rows, arg_cur])
 
-    az, dist, ctype = _packet_series(g.lm_xy, g.lm_type, n_lm_after, cur_after, poses, cfg)
+    out_pose = poses
+    matched_f = matched.reshape(B, N)
+    if cfg.mapping_publish_refine:
+        # the published pose's refine, against the committed landmark rows,
+        # once the first periodic refresh has run
+        ref = _publish_refine(poses, target_xy.reshape(B, N, 2), matched_f,
+                              body_k.reshape(B, N, 2), cfg)
+        out_pose = torch.where((pose_idx_f >= cfg.periodic_gn_every)[:, None], ref, poses)
+    az, dist, ctype = _packet_series(g.lm_xy, g.lm_type, n_lm_after, cur_after, out_pose, cfg)
     outputs = KeyframeOutputs(
-        pose=poses, cone_azimuth=az, cone_distance=dist, cone_type=ctype,
+        pose=out_pose, cone_azimuth=az, cone_distance=dist, cone_type=ctype,
         send=torch.zeros(B, dtype=torch.bool, device=dev),
         loop_closed=closure_any & (fidx == kc_frame), n_landmarks=n_lm_after)
     new_state = dataclasses.replace(
         state, graph=g, current_cone_index=cur_after[-1],
         loop_closing=state.loop_closing | closure_any,
         loop_closure_complete=state.loop_closure_complete | closure_any,
-        keyframe_count=state.keyframe_count + torch.sum(ins, dtype=_I32))
+        keyframe_count=state.keyframe_count + torch.sum(ins, dtype=_I32), lm_info_xy=lm_info)
 
     any_act = torch.any(okp)
     fallback = (((n_lm0 == 0) & ~boot & torch.any(valid_k))
@@ -357,21 +417,30 @@ def _mapping_block(state: SlamState, obs, valid, poses, okp, boot_ok, overflow,
                 | ((n_obs0 + 1 + BN > cap_e) & any_act)
                 | (n_lm0 + boot.to(_I32) + n_new_total > cap_l)
                 | torch.any(overflow & okp))
+    keep_pf = torch.sum(keep.reshape(B, N), dim=1, dtype=_I32)
     aux = dict(fallback=fallback, closure_any=closure_any, kc_frame=kc_frame,
-               cur_series=cur_after, n_lm_series=n_lm_after)
+               cur_series=cur_after, n_lm_series=n_lm_after, ins=ins,
+               n_pose_series=n_poses0 + torch.cumsum(ins, 0, dtype=_I32),
+               n_obs_series=torch.clamp(n_obs0 + boot.to(_I32) + torch.cumsum(keep_pf, 0,
+                                                                              dtype=_I32),
+                                        max=cap_e),
+               pub_rows=((torch.clamp(target_f, max=cap_l - 1).long(), matched_f)
+                         if cfg.mapping_publish_refine else None))
     return new_state, outputs, aux
 
 
 def _loc_block(state: SlamState, obs, valid, poses, okp, overflow, cfg: SlamConfig):
     """Localization-mode block against the frozen map (reference
-    src/slam.cpp:340-414). Returns (new_state, outputs [B], fallback)."""
+    src/slam.cpp:340-414); the information is frozen too, so Mahalanobis
+    gating is exact at any block size. Returns (new_state, outputs [B],
+    aux) with aux's `fallback`, `cur_series` and `n_lm_series`."""
     g0 = state.graph
     B, N = valid.shape
     BN = B * N
     dev = obs.device
 
     pose_idx_f, odo_f = _pose_insert_plan(g0, poses, okp)
-    g = _scatter_poses(g0, poses, odo_f, pose_idx_f, okp)
+    g = _scatter_poses(g0, poses, odo_f, pose_idx_f, okp, cfg)
 
     ran = okp & (torch.sum(valid & okp[:, None], dim=1) > 1)     # src/slam.cpp:332
     glob_k = _block_glob(obs, poses, cfg)
@@ -379,17 +448,16 @@ def _loc_block(state: SlamState, obs, valid, poses, okp, overflow, cfg: SlamConf
     vloc_k = (valid & ran[:, None]).reshape(BN)
     if _use_assoc_kernel(cfg):
         j, matched, _ = _provider_associate(glob_k, obs_k[:, 3], vloc_k, g.lm_xy, g.lm_type,
-                                            g.n_landmarks, cfg)
+                                            g.n_landmarks, state.lm_info_xy, cfg)
     else:
         diff = glob_k[:, None, :] - g.lm_xy[None, :, :]
-        cost = torch.sum(diff * diff, dim=-1)
+        cost, gate = _gate_cost(diff, torch.sum(diff * diff, dim=-1), state.lm_info_xy, cfg)
         if cfg.reference_compat and cfg.localizer_type_bug:
             # signed compare, reference src/slam.cpp:360
             type_ok = (g.lm_type[None, :].to(torch.float32) - obs_k[:, 3][:, None]) < 1e-4
         else:
             type_ok = g.lm_type[None, :] == obs_k[:, 3].to(_I32)[:, None]
-        okm = (type_ok & g.lm_valid[None, :] & vloc_k[:, None]
-               & (cost < cfg.same_cone_threshold ** 2))
+        okm = type_ok & g.lm_valid[None, :] & vloc_k[:, None] & (cost < gate)
         j = _first_index(okm)
         matched = torch.any(okm, dim=1)
 
@@ -405,17 +473,25 @@ def _loc_block(state: SlamState, obs, valid, poses, okp, overflow, cfg: SlamConf
     cur_changed = ran & (cur_after != cur_start)
     send_state = _last_valid_inclusive(state.send_cone_data, ran, cur_changed)[-1]
 
+    out_pose = poses
+    if cfg.localizer_refine:
+        # each frame's pose-only refine, as the per-frame path computes it
+        # (batched, but every value is computed alike: _refine_system)
+        ref = _pose_refine_rows(poses, g.lm_xy[j.long()].reshape(B, N, 2),
+                                matched.reshape(B, N), _body_xy(obs, cfg))
+        out_pose = torch.where(ran[:, None], ref, poses)
+
     new_state = dataclasses.replace(
         state, graph=g, current_cone_index=cur_after[-1], send_cone_data=send_state,
         keyframe_count=state.keyframe_count + torch.sum(okp, dtype=_I32))
     n_lm = g.n_landmarks.expand(B)
-    az, dist, ctype = _packet_series(g.lm_xy, g.lm_type, n_lm, cur_after, poses, cfg)
+    az, dist, ctype = _packet_series(g.lm_xy, g.lm_type, n_lm, cur_after, out_pose, cfg)
     outputs = KeyframeOutputs(
-        pose=poses, cone_azimuth=az, cone_distance=dist, cone_type=ctype, send=ran,
+        pose=out_pose, cone_azimuth=az, cone_distance=dist, cone_type=ctype, send=ran,
         loop_closed=torch.zeros(B, dtype=torch.bool, device=dev), n_landmarks=n_lm)
     fallback = ((g0.n_poses + B > g0.poses.shape[0]) & torch.any(okp)) \
         | torch.any(overflow & okp)
-    return new_state, outputs, fallback
+    return new_state, outputs, dict(fallback=fallback, cur_series=cur_after, n_lm_series=n_lm)
 
 
 def _rows(outs: KeyframeOutputs, lo: int, hi: int) -> KeyframeOutputs:
@@ -432,6 +508,96 @@ def _in_bounds(p, cfg: SlamConfig):
     """The GPS outlier guard (reference src/slam.cpp:300-303) per frame."""
     return (torch.abs(p[:, 0]) <= cfg.gps_outlier_bound) & \
         (torch.abs(p[:, 1]) <= cfg.gps_outlier_bound)
+
+
+def _periodic_fires(count0, ins, n_lm_series, cfg: SlamConfig):
+    """[B] whether the periodic GN fires after each frame of a block, from
+    the keyframe count before the block and the frames it inserted."""
+    return ins & _periodic_due(count0 + torch.cumsum(ins, 0, dtype=_I32), n_lm_series, cfg)
+
+
+def _read_flags(flags, fires):
+    """One device-to-host read of a block's flags and, with a periodic GN,
+    its [B] firing mask: (flags as ints, firing mask as bools or None)."""
+    t = torch.stack([f.to(_I32) for f in flags])
+    if fires is None:
+        return t.tolist(), None
+    read = torch.cat([t, fires.to(_I32)]).tolist()
+    return read[:len(flags)], [bool(x) for x in read[len(flags):]]
+
+
+def _patch_last(outs: KeyframeOutputs, g, aux, cfg: SlamConfig, pose=None) -> KeyframeOutputs:
+    """The block's last frame after a periodic GN at its end: its cone
+    packet from map `g`, published from `pose` [1, 3] when given."""
+    pose = outs.pose[-1:] if pose is None else pose
+    az, dist, ctype = _packet_series(g.lm_xy, g.lm_type, aux["n_lm_series"][-1:],
+                                     aux["cur_series"][-1:], pose, cfg)
+    return dataclasses.replace(
+        outs, pose=torch.cat([outs.pose[:-1], pose]),
+        cone_azimuth=torch.cat([outs.cone_azimuth[:-1], az]),
+        cone_distance=torch.cat([outs.cone_distance[:-1], dist]),
+        cone_type=torch.cat([outs.cone_type[:-1], ctype]))
+
+
+def _mapping_periodic(ns: SlamState, outs, aux, fires, closed: bool, kcf: int, obs, poses,
+                      cfg: SlamConfig):
+    """The periodic GN of a committed mapping block. Either its period is a
+    whole number of blocks, and it fires only on the block's last frame
+    (exactly where the per-frame path fires); or it divides the block, and
+    each firing frame's fixed-lag solve runs after the block's mapping, in
+    the order of the frames, anchored at that frame's pose and edge counts;
+    frames after a firing publish their refine against the block's final
+    map. A firing the block cannot reproduce (mid-block in the first
+    regime, or on the closure frame) returns fallback True instead.
+    Returns (fallback, state, outputs)."""
+    B = len(fires)
+    g2 = ns.graph
+    if _midblock_gn(cfg, B):
+        if closed and fires[min(max(kcf, 0), B - 1)]:
+            return True, ns, outs
+        for fj in (f for f in range(B) if fires[f]):
+            g2 = periodic_gn(g2, cfg, end=aux["n_pose_series"][fj], end_obs=aux["n_obs_series"][fj])
+        if cfg.mapping_publish_refine and any(fires):
+            lm_idx, matched = aux["pub_rows"]
+            ref = _publish_refine(poses, g2.lm_xy[lm_idx], matched, _body_xy(obs, cfg), cfg)
+            fired_before = torch.tensor([any(fires[:f]) for f in range(B)], device=poses.device)
+            upd = fired_before & (aux["n_pose_series"] - 1 >= cfg.periodic_gn_every)
+            outs = dataclasses.replace(outs, pose=torch.where(upd[:, None], ref, outs.pose))
+    else:
+        if any(fires[:-1]) or (fires[-1] and closed):
+            return True, ns, outs
+        if fires[-1]:
+            g2 = periodic_gn(g2, cfg)
+    if fires[-1]:
+        pose = None
+        if cfg.use_gps_prior and not cfg.mapping_publish_refine:
+            # the firing frame publishes its post-GN graph estimate
+            pose = g2.poses[torch.clamp(g2.n_poses - 1, min=0).reshape(1).long()]
+        outs = _patch_last(outs, g2, aux, cfg, pose)
+    return False, dataclasses.replace(ns, graph=g2), outs
+
+
+def _loc_periodic(st: SlamState, ns: SlamState, outs, aux, fires, okp, cfg: SlamConfig):
+    """The periodic GN of a committed localization block, in the two
+    regimes of `_mapping_periodic`; localization inserts poses only, so a
+    mid-block window is anchored at its firing frame's pose count and the
+    graph's edge count. The published poses are the localizer's, computed
+    before the GN, so only the last frame's packet sees the new map.
+    Returns (fallback, state, outputs)."""
+    B = len(fires)
+    g2 = ns.graph
+    if _midblock_gn(cfg, B):
+        n_pose_series = st.graph.n_poses + torch.cumsum(okp, 0, dtype=_I32)
+        for fj in (f for f in range(B) if fires[f]):
+            g2 = periodic_gn(g2, cfg, end=n_pose_series[fj])
+    else:
+        if any(fires[:-1]):
+            return True, ns, outs
+        if fires[-1]:
+            g2 = periodic_gn(g2, cfg)
+    if fires[-1] and (cfg.periodic_gn_window == 0 or cfg.periodic_gn_window_landmarks):
+        outs = _patch_last(outs, g2, aux, cfg)
+    return False, dataclasses.replace(ns, graph=g2), outs
 
 
 def blocked_core(state: SlamState, obs_seq, valid_seq, pose_seq, cfg: SlamConfig,
@@ -458,6 +624,7 @@ def blocked_core(state: SlamState, obs_seq, valid_seq, pose_seq, cfg: SlamConfig
         overflow = torch.zeros(Tp, dtype=torch.bool, device=obs_seq.device)
     okp_all = _in_bounds(pose_seq, cfg)
     fidx = torch.arange(B, device=obs_seq.device)
+    periodic = cfg.periodic_gn_every > 0
 
     parts, done_upto = [], Tp
     kc_global = -1 if frozen else Tp
@@ -466,8 +633,13 @@ def blocked_core(state: SlamState, obs_seq, valid_seq, pose_seq, cfg: SlamConfig
             f = slice(ib * B, (ib + 1) * B)
             ns, outs, aux = _mapping_block(state, obs_c[f], valid_c[f], pose_seq[f],
                                            okp_all[f], first_valid[f], overflow[f], cfg)
-            fb, closed, kcf = torch.stack([aux["fallback"].to(_I32), aux["closure_any"].to(_I32),
-                                           aux["kc_frame"]]).tolist()
+            fires = _periodic_fires(state.keyframe_count, aux["ins"], aux["n_lm_series"],
+                                    cfg) if periodic else None
+            (fb, closed, kcf), fires = _read_flags(
+                (aux["fallback"], aux["closure_any"], aux["kc_frame"]), fires)
+            if periodic and not fb:
+                fb, ns, outs = _mapping_periodic(ns, outs, aux, fires, bool(closed), kcf,
+                                                 obs_c[f], pose_seq[f], cfg)
             if fb:
                 done_upto = ib * B
                 break
@@ -476,18 +648,24 @@ def blocked_core(state: SlamState, obs_seq, valid_seq, pose_seq, cfg: SlamConfig
                 parts.append(outs)
                 continue
             # the one-shot closure GN on exactly the graph the per-frame
-            # path's closure GN saw, then the closure frame's packet from
-            # the optimized map (the per-frame path computes it after its GN)
+            # path's closure GN saw, then the closure frame's packet (and,
+            # with the publish refine, its pose) from the optimized map: the
+            # per-frame path computes both after its GN
             kc_global = ib * B + kcf
             g = gn.optimize(state.graph, _gn_config(cfg))
             state = dataclasses.replace(state, graph=g)
             at = slice(kcf, kcf + 1)
+            pose_kc = pose_seq[kc_global][None]
+            if cfg.mapping_publish_refine:
+                lm_idx, matched = aux["pub_rows"]
+                pose_kc = _publish_refine(pose_kc, g.lm_xy[lm_idx[at]], matched[at],
+                                          _body_xy(obs_c[kc_global], cfg)[None], cfg)
             az, dist, ctype = _packet_series(g.lm_xy, g.lm_type, aux["n_lm_series"][at],
-                                             aux["cur_series"][at], pose_seq[kc_global][None],
-                                             cfg)
+                                             aux["cur_series"][at], pose_kc, cfg)
             parts.append(_rows(outs, 0, kcf))
-            parts.append(dataclasses.replace(_rows(outs, kcf, kcf + 1), cone_azimuth=az,
-                                             cone_distance=dist, cone_type=ctype))
+            parts.append(dataclasses.replace(_rows(outs, kcf, kcf + 1), pose=pose_kc,
+                                             cone_azimuth=az, cone_distance=dist,
+                                             cone_type=ctype))
             break
 
     if kc_global < Tp and done_upto == Tp:
@@ -495,9 +673,14 @@ def blocked_core(state: SlamState, obs_seq, valid_seq, pose_seq, cfg: SlamConfig
             f = slice(ib * B, (ib + 1) * B)
             lo = max(kc_global + 1 - ib * B, 0)
             okp = okp_all[f] & (fidx >= lo)
-            ns, outs, fb = _loc_block(state, obs_c[f], valid_c[f], pose_seq[f], okp,
-                                      overflow[f], cfg)
-            if fb.item():
+            ns, outs, aux = _loc_block(state, obs_c[f], valid_c[f], pose_seq[f], okp,
+                                       overflow[f], cfg)
+            fires = _periodic_fires(state.keyframe_count, okp,
+                                    ns.graph.n_landmarks.expand(B), cfg) if periodic else None
+            (fb,), fires = _read_flags((aux["fallback"],), fires)
+            if periodic and not fb:
+                fb, ns, outs = _loc_periodic(state, ns, outs, aux, fires, okp, cfg)
+            if fb:
                 done_upto = ib * B
                 break
             state = ns

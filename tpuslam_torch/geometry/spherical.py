@@ -11,7 +11,7 @@ from tpuslam_torch import compat
 
 __all__ = [
     "lidar_to_cog", "spherical_to_cartesian", "cone_to_global", "cones_to_global",
-    "global_to_body_spherical",
+    "global_to_body_spherical", "lane_uniform",
 ]
 
 
@@ -68,23 +68,22 @@ def cones_to_global(pose, obs, lever_arm=compat.REF_LIDAR_TO_COG,
                           lever_arm, ref_constants)
 
 
-def _atan2(y, x):
-    """`torch.atan2` whose value for each element does not depend on how
-    many elements the tensor holds. On the CPU, ATen computes the last
-    (length mod twice the SIMD width) elements of a buffer with the scalar
-    libm function and the rest with the vectorized one, which can differ in
-    the last bit; padding the flat buffer to a multiple of 64 puts every
-    element on the vectorized path, so one keyframe's cone packet and a
-    block of keyframes' packets agree bit for bit. CUDA computes every
-    element alike."""
-    if y.is_cuda:
-        return torch.atan2(y, x)
-    y, x = torch.broadcast_tensors(y, x)
-    shape, n = y.shape, y.numel()
+def lane_uniform(fn, *xs):
+    """`fn(*xs)` for an elementwise torch function, with each element's
+    value independent of how many elements the tensors hold. On the CPU,
+    ATen computes the last (length mod twice the SIMD width) elements of a
+    buffer with the scalar libm function and the rest with the vectorized
+    one, which can differ in the last bit; padding the flat buffers to a
+    multiple of 64 puts every element on the vectorized path, so one
+    keyframe's values and a block of keyframes' values agree bit for bit.
+    CUDA computes every element alike."""
+    if xs[0].is_cuda:
+        return fn(*xs)
+    xs = torch.broadcast_tensors(*xs)
+    shape, n = xs[0].shape, xs[0].numel()
     pad = (-n) % 64
-    y = torch.cat([y.reshape(-1), y.new_zeros(pad)])
-    x = torch.cat([x.reshape(-1), x.new_ones(pad)])
-    return torch.atan2(y, x)[:n].reshape(shape)
+    flat = [torch.cat([x.reshape(-1), x.new_ones(pad)]) for x in xs]
+    return fn(*flat)[:n].reshape(shape)
 
 
 def global_to_body_spherical(pose, cone_xy, ref_constants: bool = True):
@@ -94,7 +93,7 @@ def global_to_body_spherical(pose, cone_xy, ref_constants: bool = True):
     dy = cone_xy[..., 1] - pose[..., 1]
     dist = torch.sqrt(dx * dx + dy * dy)
     r2d = compat.REF_RAD2DEG if ref_constants else 180.0 / math.pi
-    az = _atan2(dy, dx) * r2d
+    az = lane_uniform(torch.atan2, dy, dx) * r2d
     if ref_constants:
         az = az - pose[..., 2] / r2d
     else:
