@@ -183,7 +183,9 @@ def test_blocked_kernel_association_matches_per_frame():
     provider = blocked._provider_associate
 
     def counting(glob, *a, **kw):
-        calls.append(glob.shape[0])
+        # glob is [sessions, observations, 2]; one session here
+        assert glob.shape[0] == 1
+        calls.append(glob.shape[-2])
         return provider(glob, *a, **kw)
 
     blocked._provider_associate = counting

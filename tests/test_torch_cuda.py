@@ -1,7 +1,8 @@
 """Tests that need a CUDA device: each hand-written kernel against its plain
-PyTorch twin on the card, the wrappers' input checks, and the per-frame
-engine and the blocked pipeline on the card against the port's own CPU
-runs. They skip without a
+PyTorch twin on the card (one session and a batch of them), the wrappers'
+input checks, and the per-frame engine, the blocked pipeline and its
+batched sessions on the card against the port's own CPU runs. They skip
+without a
 device. The GPU machine has no JAX, so this file imports none; run it there
 with `python -m pytest --noconftest -m cuda tests/test_torch_cuda.py`
 (the suite's conftest imports JAX)."""
@@ -11,10 +12,11 @@ import torch
 
 import chip_smoke
 from tpuslam_torch.backend.graph import GraphCapacity
-from tpuslam_torch.frontend.blocked import run_pass_blocked
+from tpuslam_torch.frontend.blocked import run_pass_blocked, run_sequences_blocked_batched
 from tpuslam_torch.frontend.pipeline import run_pass
 from tpuslam_torch.ops import assoc_kernel as A
 from tpuslam_torch.ops import cholesky as C
+from tpuslam_torch.parallel.batch import initial_states
 from tpuslam_torch.runtime.config import SlamConfig
 from tpuslam_torch.sim import SimConfig, simulate, skidpad
 
@@ -107,6 +109,61 @@ def test_assoc_kernel_rejects_bad_inputs(cuda):
         A.associate_kernel(oxy, ot, lxy, lt, 1.44, lm_count=count.cpu())
     with pytest.raises(ValueError):
         A.associate_kernel(oxy, torch.stack([ot, ot], 1)[:, 0], lxy, lt, 1.44)  # strided int32
+
+
+@pytest.mark.parametrize("s,n,m,seed,ties", chip_smoke.ASSOC_BATCHED_CHECKS)
+@pytest.mark.parametrize("mahalanobis", [False, True])
+@pytest.mark.parametrize("masked", [False, True])
+def test_assoc_kernel_batched_bit_equal_to_plain(cuda, s, n, m, seed, ties, mahalanobis, masked):
+    """S sessions in one launch: bit-equal to the twin on the stack and to S
+    single twin calls, at the batched path's 16 x 512 x 256, ragged sizes
+    over chunks and cluster ranks, with ties, masks and the float type
+    column."""
+    before = A.launches
+    err = chip_smoke.assoc_batched_check(s, n, m, seed, ties, mahalanobis, masked)[2]
+    assert A.launches == before + 1
+    assert err == 0.0
+
+
+def test_assoc_kernel_batched_rejects_bad_inputs(cuda):
+    worlds = [chip_smoke.assoc_world(8, 16, i) for i in range(3)]
+    oxy, ot, lxy, lt, _ = (torch.stack([w[k] for w in worlds]) for k in range(5))
+    with pytest.raises(ValueError):
+        A.associate_kernel(oxy, ot, lxy[:2].contiguous(), lt[:2].contiguous(), 1.44)
+    with pytest.raises(ValueError):
+        A.associate_kernel(oxy, ot, lxy, lt, 1.44, lm_count=torch.ones(
+            2, dtype=torch.int32, device=cuda))
+    with pytest.raises(ValueError):
+        A.associate_kernel(oxy[None], ot[None], lxy[None], lt[None], 1.44)
+
+
+@pytest.mark.parametrize("s,n", chip_smoke.CHOL_BATCHED_CHECKS)
+def test_cholesky_kernel_batched_matches_plain_and_single(cuda, s, n):
+    """[S, n, n] in one launch: within the twin's tolerance and bit-equal to
+    S single launches."""
+    assert chip_smoke.chol_batched_check(s, n) <= chip_smoke.CHOL_ATOL + 1.0
+
+
+def test_cholesky_kernel_batched_is_one_launch(cuda):
+    from torch.profiler import ProfilerActivity, profile
+    a = torch.stack([chip_smoke.spd(384, seed=i) for i in range(16)])
+    C.cholesky_kernel(a)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        C.cholesky_kernel(a)
+        torch.cuda.synchronize()
+    kernels = {e.key: e.count for e in prof.key_averages() if e.device_type.name == "CUDA"
+               and not e.key.startswith(("Memcpy", "Memset"))}
+    assert sum(kernels.values()) == 1 and all("persistent_cholesky" in k for k in kernels)
+
+
+def test_cholesky_dispatcher_picks_on_the_matrix_size(cuda):
+    """The kernel up to n = 1536 whatever the batch, the library above."""
+    before = C.launches
+    C.cholesky(torch.stack([chip_smoke.spd(8, seed=i) for i in range(1600)]))
+    assert C.launches == before + 1
+    C.cholesky(torch.stack([chip_smoke.spd(1600)] * 2))
+    assert C.launches == before + 1
 
 
 @pytest.mark.parametrize("n", [1, 31, 32, 33, 63, 64, 65, 200, 384, 768, 1152, 1536])
@@ -272,3 +329,46 @@ def test_improved_skidpad_on_cuda_matches_cpu(cuda, name, block):
     np.testing.assert_allclose(og.pose.cpu().numpy(), oc.pose.numpy(), atol=atol)
     np.testing.assert_allclose(sg.graph.poses.cpu().numpy(), sc.graph.poses.numpy(), atol=atol)
     np.testing.assert_allclose(sg.graph.lm_xy.cpu().numpy(), sc.graph.lm_xy.numpy(), atol=atol)
+
+
+@pytest.mark.parametrize("name", ["first", "nearest"])
+def test_batched_skidpad_on_cuda_matches_cpu(cuda, name):
+    """Three skidpad sessions through `run_sequences_blocked_batched` on the
+    card against the port's CPU run of it: discrete outputs and state exact,
+    the rest within the closure GN's tolerance; with the kernel, one launch
+    per block for all sessions."""
+    scens = [simulate(skidpad(), SimConfig(laps=1.3, seed=2 + s)) for s in range(3)]
+    t = min(len(sc.times) for sc in scens)
+    kw = {} if name == "first" else dict(association="nearest", use_pallas_association=True)
+    cfg = SlamConfig(capacity=GraphCapacity(128, 128, 4096), **kw)
+    block = 8
+    runs = {}
+    for dev in ("cpu", cuda):
+        obs = torch.tensor(np.stack([sc.obs[:t] for sc in scens]), dtype=torch.float32,
+                           device=dev)
+        valid = torch.tensor(np.stack([sc.obs_valid[:t] for sc in scens]), device=dev)
+        poses = torch.tensor(np.stack([sc.odom_poses[:t] for sc in scens]), dtype=torch.float32,
+                             device=dev)
+        before = A.launches
+        runs[str(dev)] = run_sequences_blocked_batched(initial_states(cfg.capacity, 3, dev), obs,
+                                                       valid, poses, cfg, block=block)
+        launched = A.launches - before
+    (sc, oc), (sg, og) = runs["cpu"], runs["cuda"]
+    assert bool(sg.loop_closure_complete.all())
+    if name == "nearest":
+        kc = [int(torch.nonzero(lc)[0]) for lc in oc.loop_closed]
+        nb = -(-t // block)
+        assert launched == max(kc) // block + 1 + nb - min(kc) // block, launched
+    for f in ("pose", "send", "loop_closed", "n_landmarks", "cone_type"):
+        assert torch.equal(getattr(og, f).cpu(), getattr(oc, f)), f
+    for f in ("n_landmarks", "n_obs", "n_poses", "lm_type"):
+        assert torch.equal(getattr(sg.graph, f).cpu(), getattr(sc.graph, f)), f
+    for s in range(3):
+        n = int(sc.graph.n_obs[s])
+        for f in ("obs_lm", "obs_pose"):
+            assert torch.equal(getattr(sg.graph, f)[s, :n].cpu(), getattr(sc.graph, f)[s, :n]), f
+    for f in ("current_cone_index", "keyframe_count", "send_cone_data", "loop_closing"):
+        assert torch.equal(getattr(sg, f).cpu(), getattr(sc, f)), f
+    np.testing.assert_allclose(sg.graph.poses.cpu().numpy(), sc.graph.poses.numpy(), atol=1e-3)
+    np.testing.assert_allclose(sg.graph.lm_xy.cpu().numpy(), sc.graph.lm_xy.numpy(), atol=1e-3)
+    np.testing.assert_allclose(og.cone_distance.cpu().numpy(), oc.cone_distance.numpy(), atol=1e-3)

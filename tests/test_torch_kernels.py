@@ -152,6 +152,60 @@ def test_assoc_plan_fills_one_wave(n, m, sms, want):
     assert A._plan(n, m, sms) == want
 
 
+@pytest.mark.parametrize("n,m,sessions,want", [
+    (512, 256, 16, 1), (61, 2000, 3, 8), (512, 4096, 16, 1), (64, 4097, 2, 8), (512, 4096, 4, 2)])
+def test_assoc_plan_counts_every_session(n, m, sessions, want):
+    """With S sessions the grid holds S x N / 32 tiles, and the cluster is
+    no wider than keeps them within one wave of 132 SMs."""
+    assert A._plan(n, m, 132, sessions) == want
+
+
+@pytest.mark.parametrize("mahalanobis", [False, True])
+@pytest.mark.parametrize("masked", [False, True])
+def test_associate_plain_batched_equals_single_calls(mahalanobis, masked):
+    """The twin on [S, N, M] equals S unbatched calls bit for bit, masks,
+    landmark counts and the float type column included."""
+    s, n, m = 3, 61, 300
+    worlds = [chip_smoke.assoc_world(n, m, 5 + i, device="cpu") for i in range(s)]
+    oxy, ot, lxy, lt, cov = (torch.stack([w[k] for w in worlds]) for k in range(5))
+    kw = {}
+    if masked:
+        rows = torch.zeros(s, n, 4)
+        rows[..., 3] = ot.float()
+        ot = rows[..., 3]
+        kw = dict(obs_valid=torch.rand(s, n, generator=torch.Generator().manual_seed(1)) < 0.8,
+                  lm_count=torch.tensor([300, 120, 0], dtype=torch.int32))
+    gate2 = 9.21 if mahalanobis else 1.44
+    got = A.associate_plain(oxy, ot, lxy, lt, gate2, cov, mahalanobis=mahalanobis, **kw)
+    assert int(got[1].sum()) > 0
+    for i in range(s):
+        one = A.associate_plain(oxy[i], ot[i], lxy[i], lt[i], gate2, cov[i],
+                                mahalanobis=mahalanobis, **{k: v[i] for k, v in kw.items()})
+        for g, w in zip(got, one):
+            assert torch.equal(g[i], w)
+
+
+@pytest.mark.parametrize("n", [1, 33, 100, 200])
+def test_cholesky_plain_batched_equals_single_calls(n):
+    a = torch.stack([torch.tensor(_spd(n + i)[:n, :n]) for i in range(3)])
+    got = C.cholesky_plain(a)
+    for i in range(3):
+        assert torch.equal(got[i], C.cholesky_plain(a[i]))
+
+
+def test_cholesky_dispatcher_picks_on_the_matrix_size(monkeypatch):
+    """The kernel (its twin on the CPU) up to n = 1536 on the last axis,
+    whatever the batch; `cholesky_ex` above it."""
+    seen = []
+    monkeypatch.setattr(C, "cholesky_kernel", lambda a: seen.append(tuple(a.shape)) or a)
+    small = torch.eye(4).expand(1600, 4, 4)
+    assert C.cholesky(small) is small and seen == [(1600, 4, 4)]
+    big = torch.eye(1600).expand(2, 1600, 1600) * 2.0
+    got = C.cholesky(big)
+    assert seen == [(1600, 4, 4)]
+    torch.testing.assert_close(got, big.sqrt())
+
+
 @pytest.mark.parametrize("mode,signed", [("first", False), ("nearest", False),
                                          ("mahalanobis", False), ("first", True)])
 def test_dense_associate_matches_jax(mode, signed):

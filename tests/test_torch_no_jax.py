@@ -1,7 +1,8 @@
 """The port and its GPU smoke script import without JAX and without the JAX
 package: in a fresh interpreter with both `jax` and `tpuslam` made
-unimportable, every module of `tpuslam_torch` (the blocked pipeline among
-them), `chip_smoke` and the GPU tests `tests/test_torch_cuda.py` import."""
+unimportable, every module of `tpuslam_torch` (the blocked pipeline and the
+batched sessions among them), `chip_smoke` and the GPU tests
+`tests/test_torch_cuda.py` import."""
 import subprocess
 import sys
 from pathlib import Path
@@ -18,6 +19,8 @@ import tpuslam_torch
 for mod in pkgutil.walk_packages(tpuslam_torch.__path__, "tpuslam_torch."):
     importlib.import_module(mod.name)
 from tpuslam_torch.frontend.blocked import run_pass_blocked, run_sequence_blocked
+from tpuslam_torch.frontend.blocked import run_sequences_blocked_batched
+from tpuslam_torch.parallel.batch import initial_states
 import chip_smoke
 sys.path.insert(0, "tests")
 import test_torch_cuda

@@ -18,9 +18,18 @@ The fixed-lag window (`window_gn_step`) gathers its W trailing poses and
 EW trailing edges at device-side indices, so it needs no host read; its
 per-landmark counts and its [3W, L] coupling are `index_add_` scatters.
 
-Host synchronisation: each `gn_step` reads (n_poses, n_obs) once to pick its
-buckets, and `optimize` and `optimize_window` read the update size once per
-iteration for their early exit.
+Batched sessions: `gn_step` and `optimize` also take a stacked graph of S
+independent sessions (a leading axis S on every field), as the JAX package's
+vmapped closure GN does. A batch is assembled and solved at full capacity
+(its `vmap_safe_gn`: no buckets, which would differ between sessions), with
+one Cholesky of the [S, 3P, 3P] reduced systems per iteration, and each
+session stops at its own iteration count and tolerance: a session that has
+converged, or is not enabled, is held by a mask while the others go on.
+
+Host synchronisation: each single-graph `gn_step` reads (n_poses, n_obs)
+once to pick its buckets, and `optimize` and `optimize_window` read the
+update size once per iteration for their early exit (a batch: its [S]
+running mask, once per iteration).
 """
 from __future__ import annotations
 
@@ -82,34 +91,36 @@ def chi2(g: FactorGraph, cfg: GNConfig):
 
 def assemble_odometry(g: FactorGraph, cfg: GNConfig):
     """Odometry-chain contribution (+ absolute priors): returns
-    (h_diag [P,3,3], h_off [P,3,3], gp [P,3]); h_off[k] is block (k-1, k)."""
+    (h_diag [P,3,3], h_off [P,3,3], gp [P,3]), each with the graph's leading
+    session axis if it has one; h_off[k] is block (k-1, k)."""
     dtype = g.poses.dtype
-    k = torch.arange(g.poses.shape[0], device=g.poses.device)
-    odo_valid = (k >= 1) & (k < g.n_poses)
-    p_prev = g.poses[torch.clamp(k - 1, min=0)]
+    k = torch.arange(g.poses.shape[-2], device=g.poses.device)
+    n_poses = g.n_poses[..., None]
+    odo_valid = (k >= 1) & (k < n_poses)
+    p_prev = g.poses[..., torch.clamp(k - 1, min=0), :]
     r_o, j_oi, j_oj = odometry_residuals(p_prev, g.poses, g.odo_meas)
     w_o = cfg.odo_info * odo_valid.to(dtype) * g.odo_w
 
-    w3 = w_o[:, None, None]
+    w3 = w_o[..., None, None]
     jti = j_oi.transpose(-1, -2)
     jtj = j_oj.transpose(-1, -2)
     a_ii = w3 * (jti @ j_oi)
     a_jj = w3 * (jtj @ j_oj)
     h_off = w3 * (jti @ j_oj)
-    g_i = w_o[:, None] * (jti @ r_o[..., None])[..., 0]
-    g_j = w_o[:, None] * (jtj @ r_o[..., None])[..., 0]
+    g_i = w_o[..., None] * (jti @ r_o[..., None])[..., 0]
+    g_j = w_o[..., None] * (jtj @ r_o[..., None])[..., 0]
 
-    h_diag = torch.cat([a_jj[:-1] + a_ii[1:], a_jj[-1:]])
-    gp = torch.cat([g_j[:-1] + g_i[1:], g_j[-1:]])
+    h_diag = torch.cat([a_jj[..., :-1, :, :] + a_ii[..., 1:, :, :], a_jj[..., -1:, :, :]], dim=-3)
+    gp = torch.cat([g_j[..., :-1, :] + g_i[..., 1:, :], g_j[..., -1:, :]], dim=-2)
 
-    pose_valid = (k < g.n_poses).to(dtype)
-    ixy = g.prior_info[:, 0] * pose_valid
-    ith = g.prior_info[:, 1] * pose_valid
+    pose_valid = (k < n_poses).to(dtype)
+    ixy = g.prior_info[..., 0] * pose_valid
+    ith = g.prior_info[..., 1] * pose_valid
     eye_xy = torch.diag(torch.tensor([1.0, 1.0, 0.0], dtype=dtype, device=k.device))
     eye_th = torch.diag(torch.tensor([0.0, 0.0, 1.0], dtype=dtype, device=k.device))
-    h_diag = h_diag + ixy[:, None, None] * eye_xy + ith[:, None, None] * eye_th
+    h_diag = h_diag + ixy[..., None, None] * eye_xy + ith[..., None, None] * eye_th
     r_prior = g.poses - g.prior_pose
-    r_prior = torch.cat([r_prior[:, :2], se2.wrap_angle(r_prior[:, 2:])], dim=1)
+    r_prior = torch.cat([r_prior[..., :2], se2.wrap_angle(r_prior[..., 2:])], dim=-1)
     gp = gp + r_prior * torch.stack([ixy, ixy, ith], dim=-1)
     return h_diag, h_off, gp
 
@@ -126,26 +137,38 @@ def _edge_index(obs_pose, obs_lm, n_pose_rows: int, n_lm_rows: int):
 
 def landmark_edge_blocks(poses, lm_xy, obs_pose, obs_lm, obs_xy, w_l):
     """Landmark-edge contribution summed over the given edges: returns
-    (h_diag_lm [P,3,3], w [P,3,L,2], hll [L,2,2], gp_lm [P,3], gl [L,2]);
-    w[p, i, l, j] is entry (3p+i, 2l+j) of the coupling W [3P, 2L]."""
-    P, L = poses.shape[0], lm_xy.shape[0]
+    (h_diag_lm [P,3,3], w [P,3,L,2], hll [L,2,2], gp_lm [P,3], gl [L,2]),
+    each with the inputs' leading session axis if they have one; w[p, i, l,
+    j] is entry (3p+i, 2l+j) of the coupling W [3P, 2L]. The sessions'
+    sums are scattered into one buffer, each at its own row offset."""
+    lead = tuple(poses.shape[:-2])
+    P, L = poses.shape[-2], lm_xy.shape[-2]
     op, ol = _edge_index(obs_pose, obs_lm, P, L)
-    r_l, j_lp, j_ll = landmark_residuals(poses[op], lm_xy[ol], obs_xy)
+    wi = op * L + ol
+    if lead:
+        sess = torch.arange(poses.shape[0], device=poses.device)[:, None]
+        op, ol, wi = op + sess * P, ol + sess * L, wi + sess * (P * L)
+    op, ol, wi = op.reshape(-1), ol.reshape(-1), wi.reshape(-1)
+    r_l, j_lp, j_ll = landmark_residuals(poses.reshape(-1, 3)[op], lm_xy.reshape(-1, 2)[ol],
+                                         obs_xy.reshape(-1, 2))
+    w_l = w_l.reshape(-1)
     wl3 = w_l[:, None, None]
     jtp = j_lp.transpose(-1, -2)                       # [E, 3, 2]
     jtl = j_ll.transpose(-1, -2)
-    h_diag_lm = torch.zeros((P, 3, 3), dtype=poses.dtype, device=poses.device)
+    S = poses.shape[0] if lead else 1
+    h_diag_lm = torch.zeros((S * P, 3, 3), dtype=poses.dtype, device=poses.device)
     h_diag_lm.index_add_(0, op, wl3 * (jtp @ j_lp))
-    gp_lm = torch.zeros((P, 3), dtype=poses.dtype, device=poses.device)
+    gp_lm = torch.zeros((S * P, 3), dtype=poses.dtype, device=poses.device)
     gp_lm.index_add_(0, op, w_l[:, None] * (jtp @ r_l[..., None])[..., 0])
-    w = torch.zeros((P * L, 3, 2), dtype=poses.dtype, device=poses.device)
-    w.index_add_(0, op * L + ol, wl3 * (jtp @ j_ll))
-    w = w.reshape(P, L, 3, 2).permute(0, 2, 1, 3)
-    hll = torch.zeros((L, 2, 2), dtype=poses.dtype, device=poses.device)
+    w = torch.zeros((S * P * L, 3, 2), dtype=poses.dtype, device=poses.device)
+    w.index_add_(0, wi, wl3 * (jtp @ j_ll))
+    w = w.reshape(*lead, P, L, 3, 2).transpose(-3, -2)
+    hll = torch.zeros((S * L, 2, 2), dtype=poses.dtype, device=poses.device)
     hll.index_add_(0, ol, wl3 * (jtl @ j_ll))
-    gl = torch.zeros((L, 2), dtype=poses.dtype, device=poses.device)
+    gl = torch.zeros((S * L, 2), dtype=poses.dtype, device=poses.device)
     gl.index_add_(0, ol, w_l[:, None] * (jtl @ r_l[..., None])[..., 0])
-    return h_diag_lm, w, hll, gp_lm, gl
+    return (h_diag_lm.reshape(*lead, P, 3, 3), w, hll.reshape(*lead, L, 2, 2),
+            gp_lm.reshape(*lead, P, 3), gl.reshape(*lead, L, 2))
 
 
 def _bucket(count: int, cap: int, step: int) -> int:
@@ -163,26 +186,30 @@ def _assemble_blocked(g: FactorGraph, cfg: GNConfig, n_obs: int):
     zero-weight padding."""
     h_diag, h_off, gp_o = assemble_odometry(g, cfg)
     w_l = _edge_weights(g, cfg)
-    e = _bucket(n_obs, g.obs_pose.shape[0], cfg.edge_bucket_step)
+    e = _bucket(n_obs, g.obs_pose.shape[-1], cfg.edge_bucket_step)
     h_diag_lm, w, hll, gp_lm, gl = landmark_edge_blocks(
-        g.poses, g.lm_xy, g.obs_pose[:e], g.obs_lm[:e], g.obs_xy[:e], w_l[:e])
+        g.poses, g.lm_xy, g.obs_pose[..., :e], g.obs_lm[..., :e], g.obs_xy[..., :e, :],
+        w_l[..., :e])
     return h_diag + h_diag_lm, h_off, w, hll, gp_o + gp_lm, gl
 
 
 def densify_hpp(h_diag, h_off):
-    """(P,3,3) diagonal + (P,3,3) super-diagonal blocks -> dense [3P, 3P]."""
-    P = h_diag.shape[0]
-    h = torch.zeros((P, 3, P, 3), dtype=h_diag.dtype, device=h_diag.device)
+    """(P,3,3) diagonal + (P,3,3) super-diagonal blocks -> dense [3P, 3P],
+    batched over leading axes."""
+    lead, P = tuple(h_diag.shape[:-3]), h_diag.shape[-3]
+    h = h_diag.new_zeros((*lead, P, P, 3, 3))
     i = torch.arange(P, device=h_diag.device)
-    h[i, :, i, :] = h_diag
-    h[i[:-1], :, i[1:], :] = h_off[1:]
-    h[i[1:], :, i[:-1], :] = h_off[1:].transpose(-1, -2)
-    return h.reshape(3 * P, 3 * P)
+    h[..., i, i, :, :] = h_diag
+    h[..., i[:-1], i[1:], :, :] = h_off[..., 1:, :, :]
+    h[..., i[1:], i[:-1], :, :] = h_off[..., 1:, :, :].transpose(-1, -2)
+    return h.transpose(-3, -2).reshape(*lead, 3 * P, 3 * P)
 
 
 def assemble(g: FactorGraph, cfg: GNConfig):
     """Dense-blocked normal equations: (Hpp [3P,3P], W [3P,2L], Hll [L,2,2],
     gp [3P], gl [L,2]) — the JAX package's public layout."""
+    if g.n_obs.dim():
+        raise ValueError("assemble: one graph, not a stacked batch")
     h_diag, h_off, w, hll, gp, gl = _assemble_blocked(g, cfg, int(g.n_obs))
     P, L = w.shape[0], w.shape[2]
     return densify_hpp(h_diag, h_off), w.reshape(3 * P, 2 * L), hll, gp.reshape(-1), gl
@@ -206,50 +233,57 @@ def schur_solve(hpp, w_mat, hll, gp, gl, use_cholesky_kernel=False):
                              use_cholesky_kernel=use_cholesky_kernel)
 
 
+def _mv(a, x):
+    """Matrix-vector product, batched over leading axes."""
+    return a @ x if a.dim() == 2 else (a @ x[..., None])[..., 0]
+
+
 def schur_solve_split(hpp, w0, w1, hll, gp, gl, use_cholesky_kernel=False):
-    """`schur_solve` on the even/odd W column halves W0/W1 [3P, L]."""
+    """`schur_solve` on the even/odd W column halves W0/W1 [3P, L], batched
+    over leading axes (one Cholesky call for the batch)."""
     hll_inv = _inv2x2(hll)
-    ia, ib, ic = hll_inv[:, 0, 0], hll_inv[:, 0, 1], hll_inv[:, 1, 1]
-    wa0 = w0 * ia[None, :] + w1 * ib[None, :]
-    wa1 = w0 * ib[None, :] + w1 * ic[None, :]
-    s = hpp - (wa0 @ w0.T + wa1 @ w1.T)
-    gl0, gl1 = gl[:, 0], gl[:, 1]
-    rhs = -gp + (wa0 @ gl0 + wa1 @ gl1)
+    ia, ib, ic = hll_inv[..., 0, 0], hll_inv[..., 0, 1], hll_inv[..., 1, 1]
+    wa0 = w0 * ia[..., None, :] + w1 * ib[..., None, :]
+    wa1 = w0 * ib[..., None, :] + w1 * ic[..., None, :]
+    s = hpp - (wa0 @ w0.mT + wa1 @ w1.mT)
+    gl0, gl1 = gl[..., 0], gl[..., 1]
+    rhs = -gp + (_mv(wa0, gl0) + _mv(wa1, gl1))
     if use_cholesky_kernel:
         from tpuslam_torch.ops.cholesky import cholesky
         c = cholesky(s)
     else:
         c = torch.linalg.cholesky_ex(s).L
-    dp = torch.cholesky_solve(rhs[:, None], c)[:, 0]
-    r0, r1 = gl0 + w0.T @ dp, gl1 + w1.T @ dp
+    dp = torch.cholesky_solve(rhs[..., None], c)[..., 0]
+    r0, r1 = gl0 + _mv(w0.mT, dp), gl1 + _mv(w1.mT, dp)
     dl = -torch.stack([ia * r0 + ib * r1, ib * r0 + ic * r1], dim=-1)
     return dp, dl
 
 
 def _apply_gauge_blocked(g: FactorGraph, cfg: GNConfig, h_diag, h_off, w, hll, gp, gl):
     """Clamp fixed + padding variables on the block form: identity diagonal
-    blocks, zeroed couplings and gradients."""
-    P, L = g.poses.shape[0], g.lm_xy.shape[0]
+    blocks, zeroed couplings and gradients (batched over a leading session
+    axis)."""
+    P, L = g.poses.shape[-2], g.lm_xy.shape[-2]
     dtype, dev = h_diag.dtype, h_diag.device
     kp = torch.arange(P, device=dev)
-    free_pose = (kp >= cfg.fix_first_poses) & (kp < g.n_poses)
+    free_pose = (kp >= cfg.fix_first_poses) & (kp < g.n_poses[..., None])
     kl = torch.arange(L, device=dev)
-    free_lm = (kl >= cfg.fix_first_landmarks) & (kl < g.n_landmarks)
+    free_lm = (kl >= cfg.fix_first_landmarks) & (kl < g.n_landmarks[..., None])
 
-    fpb = free_pose.to(dtype)[:, None, None]
+    fpb = free_pose.to(dtype)[..., None, None]
     eye3 = torch.eye(3, dtype=dtype, device=dev)
     h_diag = h_diag * fpb + eye3 * (1.0 - fpb)
-    pair = free_pose & torch.roll(free_pose, 1)
-    pair[0] = False
-    h_off = h_off * pair.to(dtype)[:, None, None]
+    pair = free_pose & torch.roll(free_pose, 1, dims=-1)
+    pair[..., 0] = False
+    h_off = h_off * pair.to(dtype)[..., None, None]
 
     fl = free_lm.to(dtype)
-    w = w * free_pose.to(dtype)[:, None, None, None] * fl[None, None, :, None]
+    w = w * free_pose.to(dtype)[..., None, None, None] * fl[..., None, None, :, None]
     eye2 = torch.eye(2, dtype=dtype, device=dev)
-    flb = fl[:, None, None]
+    flb = fl[..., None, None]
     hll = hll * flb + eye2 * (1.0 - flb)
-    gp = gp * free_pose.to(dtype)[:, None]
-    gl = gl * fl[:, None]
+    gp = gp * free_pose.to(dtype)[..., None]
+    gl = gl * fl[..., None]
     if cfg.damping:
         h_diag = h_diag + eye3 * cfg.damping * fpb
         hll = hll + eye2 * cfg.damping * flb
@@ -267,34 +301,65 @@ def _check_precision(cfg: GNConfig, t: torch.Tensor):
 
 
 def gn_step(g: FactorGraph, cfg: GNConfig) -> FactorGraph:
-    """One Gauss-Newton iteration over the full graph."""
+    """One Gauss-Newton iteration over the full graph, or over each graph of
+    a stacked batch [S] at full capacity (no host read)."""
     _check_precision(cfg, g.poses)
-    n_poses, n_obs = torch.stack([g.n_poses, g.n_obs]).tolist()
+    lead = tuple(g.poses.shape[:-2])
+    P, E = g.poses.shape[-2], g.obs_pose.shape[-1]
+    n_poses, n_obs = (P, E) if lead else torch.stack([g.n_poses, g.n_obs]).tolist()
     h_diag, h_off, w, hll, gp, gl = _apply_gauge_blocked(
         g, cfg, *_assemble_blocked(g, cfg, n_obs))
     # the gauged rows past n_poses are exact identity/zero, so solving on the
     # leading bucket gives the full solve's update
-    P, L = w.shape[0], w.shape[2]
+    L = w.shape[-2]
     b = _bucket(n_poses, P, cfg.solve_bucket_step)
-    wb = w[:b].reshape(3 * b, L, 2)
-    dp_b, dl = schur_solve_split(densify_hpp(h_diag[:b], h_off[:b]), wb[..., 0], wb[..., 1],
-                                 hll, gp[:b].reshape(-1), gl,
-                                 use_cholesky_kernel=cfg.use_cholesky_kernel)
+    wb = w[..., :b, :, :, :].reshape(*lead, 3 * b, L, 2)
+    dp_b, dl = schur_solve_split(
+        densify_hpp(h_diag[..., :b, :, :], h_off[..., :b, :, :]), wb[..., 0], wb[..., 1],
+        hll, gp[..., :b, :].reshape(*lead, -1), gl, use_cholesky_kernel=cfg.use_cholesky_kernel)
     d_pose = torch.zeros_like(g.poses)
-    d_pose[:b] = dp_b.reshape(b, 3)
+    d_pose[..., :b, :] = dp_b.reshape(*lead, b, 3)
     poses = g.poses + d_pose
     # wrap only active rows: rows past n_poses get an exact-zero update and
     # wrap_angle is not a bit-exact identity in f32
-    act = torch.arange(P, device=poses.device) < g.n_poses
-    theta = torch.where(act, se2.wrap_angle(poses[:, 2]), poses[:, 2])
-    poses = torch.cat([poses[:, :2], theta[:, None]], dim=1)
+    act = torch.arange(P, device=poses.device) < g.n_poses[..., None]
+    theta = torch.where(act, se2.wrap_angle(poses[..., 2]), poses[..., 2])
+    poses = torch.cat([poses[..., :2], theta[..., None]], dim=-1)
     return dataclasses.replace(g, poses=poses, lm_xy=g.lm_xy + dl)
+
+
+def _iterate_batched(g: FactorGraph, cfg: GNConfig, step, enable) -> FactorGraph:
+    """`_iterate` over a stacked batch [S], each session stopping at its own
+    iteration count and tolerance as the JAX package's vmapped while loop
+    does: every iteration steps all sessions, keeps the result only for the
+    ones still running, and reads the [S] running mask once (only with an
+    early-exit tolerance); the loop ends when no session runs. `enable`
+    ([S] bool, None for all) is not read: with every session disabled the
+    loop steps and discards once."""
+    tol = cfg.early_exit_tol
+    running = (torch.ones(g.poses.shape[:1], dtype=torch.bool, device=g.poses.device)
+               if enable is None else enable.to(device=g.poses.device, dtype=torch.bool))
+    for _ in range(cfg.iterations):
+        g2 = step(g)
+        delta = torch.maximum(torch.amax(torch.abs(g2.poses - g.poses), dim=(-2, -1)),
+                              torch.amax(torch.abs(g2.lm_xy - g.lm_xy), dim=(-2, -1)))
+        g = dataclasses.replace(
+            g, poses=torch.where(running[:, None, None], g2.poses, g.poses),
+            lm_xy=torch.where(running[:, None, None], g2.lm_xy, g.lm_xy))
+        if tol > 0.0:
+            running = running & (delta > tol)
+            if not bool(running.any()):
+                break
+    return g
 
 
 def _iterate(g: FactorGraph, cfg: GNConfig, step, enable) -> FactorGraph:
     """Up to `cfg.iterations` calls of `step`, stopping early once an
     iteration's max |update| (poses and landmarks) drops to
-    `cfg.early_exit_tol` (0 = never); `enable=False` returns `g`."""
+    `cfg.early_exit_tol` (0 = never); `enable=False` returns `g`. A stacked
+    batch goes to `_iterate_batched`."""
+    if g.n_poses.dim():
+        return _iterate_batched(g, cfg, step, enable)
     if enable is not None and not bool(enable):
         return g
     for _ in range(cfg.iterations):
@@ -310,7 +375,10 @@ def _iterate(g: FactorGraph, cfg: GNConfig, step, enable) -> FactorGraph:
 def optimize(g: FactorGraph, cfg: GNConfig, enable=None) -> FactorGraph:
     """Run up to `cfg.iterations` GN iterations, stopping early once an
     iteration's max |update| (poses and landmarks) drops to
-    `cfg.early_exit_tol` (0 = never). `enable=False` returns `g` unchanged."""
+    `cfg.early_exit_tol` (0 = never). `enable=False` returns `g` unchanged.
+    A stacked graph [S] is optimized session by session in one batch, with
+    `enable` [S]: each session stops at its own iteration, and a disabled
+    one comes back unchanged."""
     return _iterate(g, cfg, lambda gg: gn_step(gg, cfg), enable)
 
 

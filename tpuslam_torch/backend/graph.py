@@ -8,6 +8,10 @@ state, so states convert between the packages field by field.
 The update functions are functional: they return a new `FactorGraph` and
 never write into the tensors of the one they were given. Counters stay on
 the device, so a masked append costs no host synchronisation.
+
+A stacked graph of S independent sessions carries a leading axis S on every
+field (the counters [S]); the validity masks below and the batched
+Gauss-Newton (`gauss_newton.gn_step` / `optimize`) take it.
 """
 from __future__ import annotations
 
@@ -43,20 +47,23 @@ class FactorGraph:
 
     @property
     def pose_valid(self) -> torch.Tensor:
-        return torch.arange(self.poses.shape[0], device=self.poses.device) < self.n_poses
+        return torch.arange(self.poses.shape[-2], device=self.poses.device) \
+            < self.n_poses[..., None]
 
     @property
     def lm_valid(self) -> torch.Tensor:
-        return torch.arange(self.lm_xy.shape[0], device=self.lm_xy.device) < self.n_landmarks
+        return torch.arange(self.lm_xy.shape[-2], device=self.lm_xy.device) \
+            < self.n_landmarks[..., None]
 
     @property
     def obs_valid(self) -> torch.Tensor:
-        return torch.arange(self.obs_pose.shape[0], device=self.obs_pose.device) < self.n_obs
+        return torch.arange(self.obs_pose.shape[-1], device=self.obs_pose.device) \
+            < self.n_obs[..., None]
 
     @property
     def capacity(self) -> GraphCapacity:
-        return GraphCapacity(self.poses.shape[0], self.lm_xy.shape[0],
-                             self.obs_pose.shape[0])
+        return GraphCapacity(self.poses.shape[-2], self.lm_xy.shape[-2],
+                             self.obs_pose.shape[-1])
 
 
 def _i32(v, device) -> torch.Tensor:

@@ -11,6 +11,13 @@
 // obs_valid[i] false, or a landmark at j >= *lm_count, never matches (the
 // TPU caller's types -2 and -1).
 //
+// Sessions: every input and output may carry a leading session axis S (the
+// JAX package vmaps its kernel over independent sessions, which puts S on
+// the Pallas grid). Session s reads its own observations, landmarks,
+// covariances and landmark count and writes its own outputs; one launch
+// covers all S, with the session as the grid's y dimension, so a cluster
+// never spans two sessions. S = 1 is the unbatched call.
+//
 // What bounds it, on the H100 (67 TFLOP/s FP32, 3.35 TB/s): at the
 // per-frame shape (N = 64, M = 256) the 4.4 KB it must move take 1.3 ns, at
 // the blocked pipeline's (N = 2048, M = 256) and the pod-scale map's
@@ -68,8 +75,8 @@ __global__ void __launch_bounds__(kThreads)
                  const bool* __restrict__ obs_valid, const float2* __restrict__ lm_xy,
                  const int* __restrict__ lm_type, const float* __restrict__ lm_cov,
                  const int* __restrict__ lm_count, int n, int m, float gate2,
-                 int* __restrict__ idx_out, float* __restrict__ cost_out,
-                 bool* __restrict__ matched_out) {
+                 long long obs_type_sstride, int* __restrict__ idx_out,
+                 float* __restrict__ cost_out, bool* __restrict__ matched_out) {
   __shared__ float4 s_lm[kThreads];                          // (x, y, type bits, -)
   __shared__ float4 s_cov[kMahalanobis ? kThreads : 1];      // (a, 2b, c, -)
   __shared__ float s_cost[kWarps][32];
@@ -80,6 +87,20 @@ __global__ void __launch_bounds__(kThreads)
   const int rank = static_cast<int>(cluster.block_rank());
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   const int i = (blockIdx.x / csize) * 32 + lane;
+
+  // this block's session: shift every pointer to its rows
+  const long long sn = static_cast<long long>(blockIdx.y) * n;
+  const long long sm = static_cast<long long>(blockIdx.y) * m;
+  obs_xy += sn;
+  obs_type = static_cast<const int*>(obs_type) + blockIdx.y * obs_type_sstride;
+  if (obs_valid != nullptr) obs_valid += sn;
+  lm_xy += sm;
+  lm_type += sm;
+  if constexpr (kMahalanobis) lm_cov += 3 * sm;
+  if (lm_count != nullptr) lm_count += blockIdx.y;
+  idx_out += sn;
+  cost_out += sn;
+  matched_out += sn;
 
   float ox = nan_f(), oy = nan_f();
   int ot = 0;
@@ -196,41 +217,47 @@ template <bool kMahalanobis>
 int launch(cudaLaunchConfig_t& cfg, int csize, const void* obs_xy, const void* obs_type,
            long long obs_type_stride, int obs_type_float, const void* obs_valid,
            const void* lm_xy, const void* lm_type, const void* lm_cov, const void* lm_count,
-           int n, int m, float gate2, void* idx, void* cost, void* matched) {
+           int n, int m, float gate2, long long obs_type_sstride, void* idx, void* cost,
+           void* matched) {
   if (const int err = cluster_fits<kMahalanobis>(cfg, csize)) return err;
   const cudaError_t err = cudaLaunchKernelEx(
       &cfg, assoc_kernel<kMahalanobis>, static_cast<const float2*>(obs_xy), obs_type,
       obs_type_stride, obs_type_float, static_cast<const bool*>(obs_valid),
       static_cast<const float2*>(lm_xy), static_cast<const int*>(lm_type),
       static_cast<const float*>(lm_cov), static_cast<const int*>(lm_count), n, m, gate2,
-      static_cast<int*>(idx), static_cast<float*>(cost), static_cast<bool*>(matched));
+      obs_type_sstride, static_cast<int*>(idx), static_cast<float*>(cost),
+      static_cast<bool*>(matched));
   if (err != cudaSuccess) return static_cast<int>(err);
   return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
 
-// One launch on `stream`. obs_type is int32, or float32 when obs_type_float
-// (truncated toward zero), read at obs_type[i * obs_type_stride]; obs_valid
-// ([n] bool) and lm_count (int32 scalar on the device) may be null. Writes
-// idx int32 [n], cost f32 [n] and matched bool [n].
-// `csize` (1..8) blocks of one cluster share 32 observations; each walks
-// landmark chunks of 256. Returns a cudaError_t; n <= 0 launches nothing.
+// One launch on `stream` for `sessions` sessions, each of n observations and
+// m landmarks, stored session after session: obs_xy [S, n, 2], lm_xy
+// [S, m, 2], lm_type [S, m], lm_cov [S, m, 3]. obs_type is int32, or float32
+// when obs_type_float (truncated toward zero), read at
+// obs_type[s * obs_type_sstride + i * obs_type_stride]; obs_valid ([S, n]
+// bool) and lm_count ([S] int32 on the device) may be null. Writes idx int32,
+// cost f32 and matched bool, each [S, n]. `csize` (1..8) blocks of one
+// cluster share 32 observations of one session; each walks landmark chunks
+// of 256. Returns a cudaError_t; n <= 0 or sessions <= 0 launches nothing.
 extern "C" int tpuslam_assoc(const void* obs_xy, const void* obs_type,
-                             long long obs_type_stride, int obs_type_float,
-                             const void* obs_valid, const void* lm_xy, const void* lm_type,
-                             const void* lm_cov, const void* lm_count, int n, int m,
-                             float gate2, int mahalanobis, int csize, void* idx,
-                             void* cost, void* matched, void* stream) {
-  if (n <= 0) return 0;
-  if (csize < 1 || csize > kMaxCluster) return static_cast<int>(cudaErrorInvalidValue);
+                             long long obs_type_stride, long long obs_type_sstride,
+                             int obs_type_float, const void* obs_valid, const void* lm_xy,
+                             const void* lm_type, const void* lm_cov, const void* lm_count,
+                             int sessions, int n, int m, float gate2, int mahalanobis,
+                             int csize, void* idx, void* cost, void* matched, void* stream) {
+  if (n <= 0 || sessions <= 0) return 0;
+  if (csize < 1 || csize > kMaxCluster || sessions > 65535)
+    return static_cast<int>(cudaErrorInvalidValue);
   cudaLaunchAttribute attr[1];
   attr[0].id = cudaLaunchAttributeClusterDimension;
   attr[0].val.clusterDim.x = csize;
   attr[0].val.clusterDim.y = 1;
   attr[0].val.clusterDim.z = 1;
   cudaLaunchConfig_t cfg = {};
-  cfg.gridDim = dim3(((n + 31) / 32) * csize);
+  cfg.gridDim = dim3(((n + 31) / 32) * csize, sessions);
   cfg.blockDim = dim3(kThreads);
   cfg.dynamicSmemBytes = 0;
   cfg.stream = static_cast<cudaStream_t>(stream);
@@ -238,7 +265,7 @@ extern "C" int tpuslam_assoc(const void* obs_xy, const void* obs_type,
   cfg.numAttrs = 1;
   auto go = mahalanobis ? launch<true> : launch<false>;
   return go(cfg, csize, obs_xy, obs_type, obs_type_stride, obs_type_float, obs_valid, lm_xy,
-            lm_type, lm_cov, lm_count, n, m, gate2, idx, cost, matched);
+            lm_type, lm_cov, lm_count, n, m, gate2, obs_type_sstride, idx, cost, matched);
 }
 
 extern "C" const char* tpuslam_assoc_error_string(int err) {

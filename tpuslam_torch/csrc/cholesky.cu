@@ -1,11 +1,13 @@
 // Tiled Cholesky in FP32 of the Schur-reduced pose system, for Hopper: one
-// cooperative launch of persistent blocks per factorization.
+// cooperative launch of persistent blocks factors a batch of S matrices.
 //
 // Replaces the TPU kernel tpuslam/ops/cholesky.py:_chol_kernel (entry
-// cholesky_pallas). A = L L^T for SPD A [n, n], row-major, factored in place:
-// L in the lower triangle, the strict upper triangle zeroed. Pivots are
-// rsqrtf(fmaxf(pivot, 1e-30f)) exactly as cholesky.py:69 clamps them, so a
-// non-positive pivot does not stop the factorization.
+// cholesky_pallas, which the JAX package's batched sessions vmap over S).
+// A_s = L_s L_s^T for each SPD A_s [n, n] of a batch [S, n, n], row-major,
+// factored in place: L in the lower triangle, the strict upper triangle
+// zeroed. Pivots are rsqrtf(fmaxf(pivot, 1e-30f)) exactly as cholesky.py:69
+// clamps them, so a non-positive pivot does not stop the factorization.
+// S = 1 is the single factorization.
 //
 // What bounds it: at the sizes the GN solve reaches (n = 384..1536; 768 at the
 // trackdrive closure) the work is n^3/3 = 0.15 GFLOP at n = 768, 2.25 us at
@@ -22,18 +24,21 @@
 // from an atomic counter by a grid of co-resident persistent blocks
 // (cudaLaunchCooperativeKernel, so a grid that cannot be co-resident is refused
 // rather than deadlocking). A task depends only on lower-numbered tasks, so the
-// lowest unfinished task can always run. Each finished tile sets its own ready
-// flag (release); a block waits (acquire) only for the tiles it reads, and
-// reads them past L1 (__ldcg), since L1 is not coherent across SMs. That gives
-// look-ahead for free: while the chain advances, the other blocks sum the
-// tiles of later columns from what is already finished. The sub-diagonal
-// tile (j + 1, j) and the diagonal tile (j + 1, j + 1) are one task, so the
-// chain hands over once per step: the block sums both from the same L_{j+1,k}
-// tiles, waits for L_jj, solves, publishes L_{j+1,j}, subtracts its product
-// from the diagonal tile and factors it. A diagonal tile is factored once, by
-// one warp, a row per lane in registers, the pivot broadcast with
-// __shfl_sync, the pivot column through shared memory, and no block-wide
-// barrier in the column loop.
+// lowest unfinished task can always run. In a batch, task k of matrix s is
+// global task k * S + s: the S independent chains advance together, step by
+// step, and the blocks spread over S chains instead of waiting on one; each
+// matrix has its own tile flags and inverse pivots. Each finished tile sets
+// its own ready flag (release); a block waits (acquire) only for the tiles it
+// reads, and reads them past L1 (__ldcg), since L1 is not coherent across
+// SMs. That gives look-ahead for free: while the chain advances, the other
+// blocks sum the tiles of later columns from what is already finished. The
+// sub-diagonal tile (j + 1, j) and the diagonal tile (j + 1, j + 1) are one
+// task, so the chain hands over once per step: the block sums both from the
+// same L_{j+1,k} tiles, waits for L_jj, solves, publishes L_{j+1,j},
+// subtracts its product from the diagonal tile and factors it. A diagonal
+// tile is factored once, by one warp, a row per lane in registers, the pivot
+// broadcast with __shfl_sync, the pivot column through shared memory, and no
+// block-wide barrier in the column loop.
 //
 // Sums: each earlier tile's 32 products are summed by FMA from zero, and that
 // partial sum is subtracted from the tile; inside a tile the column loops
@@ -43,7 +48,10 @@
 // there the FP32 factor is held to float64, not to the plain twin's op order
 // (chip_smoke.py phase 5). Arithmetic is FP32 on the CUDA cores: no TF32 and
 // no tensor cores (the GN contract is full FP32), which at these sizes cost
-// nothing. The matrix stays in L2 (2.4 MB at n = 768, 9.4 MB at n = 1536).
+// nothing. One matrix stays in L2 (2.4 MB at n = 768, 9.4 MB at n = 1536); a
+// batch need not: at S = 16, n = 1152 the matrices take 85 MB against L2's
+// 50 MB, and since the chains advance together, the tiles a step reads come
+// from HBM.
 // Tiles above the diagonal are zeroing tasks after the last lower tile, for
 // blocks that have run out of work. Ragged n is masked (rows and columns past
 // n are zero, the diagonal's padding the identity), so the input is not
@@ -243,26 +251,33 @@ __device__ __forceinline__ void task_tile(int t, int p, int n_lower, int& i, int
 }
 
 __global__ void __launch_bounds__(kThreads)
-persistent_cholesky(float* __restrict__ a, int* __restrict__ work, float* __restrict__ inv, int n) {
+persistent_cholesky(float* __restrict__ a_all, int* __restrict__ work,
+                    float* __restrict__ inv_all, int n, int batch) {
   __shared__ Tile s_a, s_b;
   __shared__ __align__(16) float s_col[kT];
   __shared__ int s_task;
   const int p = (n + kT - 1) / kT;
   const int n_lower = 1 + p * (p - 1) / 2, n_tasks = n_lower + p * (p - 1) / 2;
+  const int n_flags = p * (p + 1) / 2;
   int* counter = work;
-  int* flags = work + 1;
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
 
-  for (int t = blockIdx.x * kThreads + threadIdx.x; t <= p * (p + 1) / 2; t += gridDim.x * kThreads)
+  for (long long t = blockIdx.x * kThreads + threadIdx.x; t <= (long long)batch * n_flags;
+       t += gridDim.x * kThreads)
     work[t] = 0;
   cg::this_grid().sync();
 
   for (;;) {
     if (threadIdx.x == 0) s_task = atomicAdd(counter, 1);
     __syncthreads();
-    const int t = s_task;
+    const int g = s_task;
     __syncthreads();
-    if (t >= n_tasks) break;
+    if (g >= n_tasks * batch) break;
+    // global task g is task t of matrix ms
+    const int t = g / batch, ms = g - t * batch;
+    float* a = a_all + (size_t)ms * n * n;
+    int* flags = work + 1 + (size_t)ms * n_flags;
+    float* inv = inv_all + (size_t)ms * p * kT;
     int i, j;
     task_tile(t, p, n_lower, i, j);
     if (t >= n_lower) {   // strict upper tile: zeros
@@ -326,12 +341,13 @@ persistent_cholesky(float* __restrict__ a, int* __restrict__ work, float* __rest
 
 }  // namespace
 
-// Scratch from the caller: `work` int32 [1 + p(p+1)/2] (claim counter, tile
-// flags) and `inv` f32 [32 p], p = ceil(n / 32). One cooperative launch on
-// `stream`; returns its cudaError_t.
-extern "C" int tpuslam_cholesky(void* a_ptr, void* work_ptr, void* inv_ptr, int n,
+// Factors `batch` matrices [n, n] stored one after the other at a_ptr.
+// Scratch from the caller: `work` int32 [1 + batch p(p+1)/2] (claim counter,
+// each matrix's tile flags) and `inv` f32 [batch 32 p], p = ceil(n / 32).
+// One cooperative launch on `stream`; returns its cudaError_t.
+extern "C" int tpuslam_cholesky(void* a_ptr, void* work_ptr, void* inv_ptr, int n, int batch,
                                 void* stream) {
-  if (n <= 0) return 0;
+  if (n <= 0 || batch <= 0) return 0;
   int dev = 0, sms = 0, per_sm = 0;
   cudaError_t err = cudaGetDevice(&dev);
   if (err == cudaSuccess) err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
@@ -341,13 +357,14 @@ extern "C" int tpuslam_cholesky(void* a_ptr, void* work_ptr, void* inv_ptr, int 
   const int p = (n + kT - 1) / kT;
   const int blocks = per_sm < kMaxBlocksPerSm ? per_sm : kMaxBlocksPerSm;
   int grid = blocks * sms;
-  const int tasks = 1 + p * (p - 1);
-  if (grid > tasks) grid = tasks;
+  const long long tasks = (long long)batch * (1 + p * (p - 1));
+  if (tasks >= (1ll << 31)) return static_cast<int>(cudaErrorInvalidValue);
+  if (grid > tasks) grid = static_cast<int>(tasks);
   if (grid < 1) return static_cast<int>(cudaErrorCooperativeLaunchTooLarge);
   float* a = static_cast<float*>(a_ptr);
   int* work = static_cast<int*>(work_ptr);
   float* inv = static_cast<float*>(inv_ptr);
-  void* args[] = {&a, &work, &inv, &n};
+  void* args[] = {&a, &work, &inv, &n, &batch};
   err = cudaLaunchCooperativeKernel(reinterpret_cast<const void*>(persistent_cholesky), dim3(grid),
                                     dim3(kThreads), args, 0, static_cast<cudaStream_t>(stream));
   if (err != cudaSuccess) return static_cast<int>(err);

@@ -143,10 +143,10 @@ def _gate_cost(diff, d2, lm_info, cfg: SlamConfig):
     if cfg.association != "mahalanobis":
         return d2, thresh2
     inno = _innovation_info(lm_info, cfg)
-    a, b, c = inno[None, :, 0], inno[None, :, 1], inno[None, :, 2]
+    a, b, c = inno[..., None, :, 0], inno[..., None, :, 1], inno[..., None, :, 2]
     dx, dy = diff[..., 0], diff[..., 1]
     mahal = a * dx * dx + 2.0 * b * dx * dy + c * dy * dy
-    has_info = (lm_info[:, 0] + lm_info[:, 2])[None, :] > 0.0
+    has_info = (lm_info[..., 0] + lm_info[..., 2])[..., None, :] > 0.0
     cost = torch.where(has_info, mahal, d2 * (cfg.mahalanobis_gate / thresh2))
     return cost, cfg.mahalanobis_gate
 
@@ -179,14 +179,15 @@ def _mahal_packed(lm_info, cfg: SlamConfig):
     landmark that has no information yet: the per-landmark payload the
     kernel gates with under 'mahalanobis'."""
     fallback = cfg.mahalanobis_gate / cfg.same_cone_threshold ** 2
-    has = (lm_info[:, 0] + lm_info[:, 2]) > 0.0
-    return torch.where(has[:, None], _innovation_info(lm_info, cfg),
+    has = (lm_info[..., 0] + lm_info[..., 2]) > 0.0
+    return torch.where(has[..., None], _innovation_info(lm_info, cfg),
                        lm_info.new_tensor([fallback, 0.0, fallback]))
 
 
 def _provider_associate(glob, otype, valid, lm_xy, lm_type, n_landmarks, lm_info,
                         cfg: SlamConfig):
-    """(match_idx, matched, cost) for a flat observation batch from the
+    """(match_idx, matched, cost) for a flat observation batch, or one per
+    session with a leading session axis on every argument, from the
     association kernel, Euclidean or Mahalanobis (against `lm_info`), which
     reads the float type column `otype` as int32 and masks invalid
     observations and landmarks past `n_landmarks` itself: neither ever

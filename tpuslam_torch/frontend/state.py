@@ -7,6 +7,11 @@ dict of numpy arrays keyed by field name (the graph as a nested dict), the
 layout `np.asarray(getattr(x, f.name))` over `dataclasses.fields` gives for
 the JAX pytree; `state_from_numpy` reads it back. Dtypes round-trip
 exactly: f32 stays f32, i32 stays i32, bool stays bool.
+
+S independent sessions are one stacked state, with a leading axis S on every
+field (`stack_states`, `session_state`, `parallel.batch.initial_states`); the
+converters take it as they take one state, so the JAX package's stacked
+states carry across too.
 """
 from __future__ import annotations
 
@@ -41,6 +46,25 @@ def initial_state(cap: GraphCapacity, device) -> SlamState:
         send_cone_data=scalar(False, torch.bool),
         lm_info_xy=torch.zeros((cap.max_landmarks, 3), dtype=torch.float32, device=device),
     )
+
+
+def map_state(fn, *states: SlamState) -> SlamState:
+    """`fn` applied field by field (the graph's too) across `states`."""
+    def fields(cls, objs):
+        return {f.name: fn(*(getattr(o, f.name) for o in objs))
+                for f in dataclasses.fields(cls) if f.name != "graph"}
+    return SlamState(graph=FactorGraph(**fields(FactorGraph, [s.graph for s in states])),
+                     **fields(SlamState, states))
+
+
+def stack_states(states) -> SlamState:
+    """One stacked state [S] from S states."""
+    return map_state(lambda *xs: torch.stack(xs), *states)
+
+
+def session_state(states: SlamState, s: int) -> SlamState:
+    """Session `s` of a stacked state."""
+    return map_state(lambda x: x[s], states)
 
 
 def _tensor(x, device) -> torch.Tensor:
