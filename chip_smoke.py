@@ -39,6 +39,16 @@ Phases, in order; the first that fails ends the run with exit code 1:
                sessions at 16 x 512 x 256; then the closure GN of the 16
                closed graphs through the Cholesky kernel, one launch per
                iteration for all sessions, each factor held to float64;
+  fusion   — bench.py's fusion section (8 improved-mode sessions with
+               Mahalanobis gating and the periodic GN, `blocked_core_batched`
+               at block 16; `fuse_sessions(align=False)` with the n = 9216
+               joint GN; the drifted variant through
+               `run_sequences_blocked_batched` and `fuse_sessions(align=True,
+               robust=True)`), dense as bench.py has it and through the
+               association kernel: each held to FUSION_REFERENCE and every
+               session of the batched pass to its own single-session blocked
+               run; with the kernel, one launch per block for all sessions at
+               8 x 512 x 256 and, drifted, at 8 x 256 x 256;
   5. closure solve — `gauss_newton.optimize` on the graph the closure GN
                solves, through the Cholesky kernel and through
                `torch.linalg.cholesky_ex`, and the kernel's factor of the
@@ -52,7 +62,9 @@ Phases, in order; the first that fails ends the run with exit code 1:
                this run's shapes, the association kernel at each of
                ASSOC_SHAPES; batched compat passes at BATCHED_SWEEP sessions
                beside the 16 single-session laps run one after another, and
-               both kernels at the batched shapes.
+               both kernels at the batched shapes; the fusion section's
+               batched improved pass, its fusions and joint GN alone, and the
+               association kernel at the fusion shapes.
 It prints a `{"kernels": [...]}` line, the card's name and power limit as
 nvidia-smi gives them, and last `{"ok": true, "device": {...}}`. Without a
 CUDA device it fails before any phase. It imports no JAX.
@@ -77,12 +89,13 @@ from tpuslam_torch.backend.graph import GraphCapacity
 from tpuslam_torch.frontend import blocked as blocked_mod
 from tpuslam_torch.frontend import keyframe as keyframe_mod
 from tpuslam_torch.frontend.blocked import (
-    run_pass_blocked, run_sequence_blocked, run_sequences_blocked_batched,
+    blocked_core_batched, run_pass_blocked, run_sequence_blocked, run_sequences_blocked_batched,
 )
 from tpuslam_torch.frontend.keyframe import _gate_cost, _gn_config, periodic_gn
 from tpuslam_torch.frontend.pipeline import run_pass, run_sequence
 from tpuslam_torch.frontend.state import initial_state, session_state
 from tpuslam_torch.parallel.batch import initial_states
+from tpuslam_torch.parallel.fusion import fuse_sessions, fusion_report
 from tpuslam_torch.ops import assoc_kernel as A
 from tpuslam_torch.ops import cholesky as C
 from tpuslam_torch.runtime.config import SlamConfig
@@ -141,12 +154,11 @@ IMPROVED_RUNS = {"I1": ("I1", None), "I1_b16": ("I1", 16), "I1_b32": ("I1", 32),
 # flipped against the CPU run (the GN's CUDA sums are atomics, and the
 # periodic GN feeds the map later frames are gated against)
 CROSS_PATH_LANDMARKS, CROSS_PATH_POSE_M = 2, 0.05
-IMPROVED_LAPS_TIMED = 3     # the improved laps' rate: median of this many
 IMPROVED_TIMED = ("I1", "I1_b16", "I1_b32", "I2_b16")   # the improved laps timed
 FIRING_FRAME = 208          # frames before a periodic firing (keyframe 208 = 13 x 16)
 POSE_ATOL = 1e-3            # GPU vs CPU port, and kernel vs library GN solve
 CHOL_ATOL, CHOL_RTOL, CHOL_RECON_ATOL = 5e-4, 1e-3, 5e-3
-LAPS_TIMED = 5              # the lap rate is the median of this many laps (host-bound, noisy)
+LAPS_TIMED = 3              # a lap's rate is the median of this many laps (host-bound, noisy)
 PROFILE_TRIES = 3           # profiled windows of one kernel before a short count fails
 # H100 SXM peaks for the bound (NVIDIA's data sheet, at 700 W): FP32 outside
 # the tensor cores, and HBM3
@@ -185,7 +197,41 @@ ASSOC_BATCHED = {"batched16": (16, 512, 256)}
 # batched association kernel to its twin, plain and masked: the path's shape,
 # ragged sizes over several chunks and cluster ranks, and ties
 ASSOC_BATCHED_CHECKS = [(16, 512, 256, 0, False), (3, 61, 2000, 5, False),
-                        (16, 512, 256, 3, True), (3, 61, 2000, 4, True)]
+                        (16, 512, 256, 3, True), (3, 61, 2000, 4, True),
+                        (8, 512, 256, 0, False), (8, 512, 256, 3, True),
+                        (8, 256, 256, 0, False), (8, 256, 256, 3, True)]
+# bench.py's fusion section (bench.py:663-800, the JAX package's BASELINE
+# config 5 on one chip): 8 laps of the bench track, session s with noise
+# seed 60 + s, cut to the shortest and to a multiple of the block; capacity
+# GraphCapacity(max(384, t_f), 256, 4096); the improved mode with
+# Mahalanobis gating, the periodic GN every 16, through
+# `blocked_core_batched` at block 16 with its compaction width of 32; then
+# `fuse_sessions(align=False)` and the joint GN. The drifted variant moves
+# each session but the first rigidly (offsets from seed 7) and runs
+# `run_sequences_blocked_batched` (compaction width 16), then
+# `fuse_sessions(align=True, robust=True)` at twice the gate. Nothing is cut.
+FUSION_SESSIONS, FUSION_SEED0, FUSION_BLOCK, FUSION_DRIFT_SEED = 8, 60, 16, 7
+FUSION_POSES, FUSION_CAP_LM, FUSION_CAP_OBS = 384, 256, 4096
+# bench.py's dense configuration, and the same with the association kernel
+FUSION_CONFIGS = {"dense": {}, "kernel": dict(use_pallas_association=True)}
+# The JAX package's run of that flow on the CPU, the same in both
+# configurations; tests/test_torch_fusion_reference.py recomputes it with
+# JAX and the port (the map errors, which need the n = 9216 joint GN, in
+# its `slow` half)
+FUSION_REFERENCE = dict(
+    closure_frame=[212] * 8,
+    n_landmarks=[126, 115, 117, 117, 118, 107, 110, 116],
+    n_obs=[1952, 1976, 1958, 1967, 1973, 1966, 1963, 1954],
+    fused_landmarks=93, cross_session_merges=93, map_error_fused_m=0.011457,
+    drifted=dict(closure_frame=[212, 213, 216, 212, 212, 218, 215, 218],
+                 n_landmarks=[126, 144, 127, 124, 117, 131, 123, 148],
+                 n_obs=[1952, 1988, 2001, 1967, 1973, 2032, 1995, 2022]),
+    fused_landmarks_drifted=93, cross_session_merges_drifted=93,
+    map_error_fused_drifted_m=0.020163)
+# (S, N, M) of the association kernel on the fusion path: 8 sessions of
+# block 16 x width 32 (the direct `blocked_core_batched` call) and x width 16
+# (the drifted variant, through `_pick_compact`) against 256 landmarks
+ASSOC_FUSION = {"fusion": (8, 512, 256), "fusion_drifted": (8, 256, 256)}
 # (S, n) at which the batched Cholesky kernel is held to its twin and to
 # single launches: the path's [16, 1152, 1152] among them
 CHOL_BATCHED_CHECKS = [(s, n) for s in (1, 3, 16) for n in (1, 33, 768, 1152)]
@@ -442,6 +488,115 @@ def session_metrics(states, outs, s) -> dict:
                 n_landmarks=int(g.n_landmarks[s]), n_obs=int(g.n_obs[s]))
 
 
+def fusion_scenario(track):
+    """bench.py's fusion scenario: (obs, valid, poses) numpy stacks [S, t_f,
+    ...] of FUSION_SESSIONS laps of `track`, cut to the shortest and to a
+    multiple of FUSION_BLOCK, and t_f."""
+    scens = [simulate(track, SimConfig(**dict(SIM, seed=FUSION_SEED0 + s)))
+             for s in range(FUSION_SESSIONS)]
+    t_f = min(len(sc.times) for sc in scens)
+    t_f -= t_f % FUSION_BLOCK
+    return (np.stack([sc.obs[:t_f] for sc in scens]).astype(np.float32),
+            np.stack([sc.obs_valid[:t_f] for sc in scens]),
+            np.stack([sc.odom_poses[:t_f] for sc in scens]).astype(np.float32), t_f)
+
+
+def fusion_configs(cap):
+    return {name: SlamConfig.improved(capacity=cap, association="mahalanobis",
+                                      periodic_gn_every=16, **kw)
+            for name, kw in FUSION_CONFIGS.items()}
+
+
+def fusion_cap(t_f):
+    return GraphCapacity(max(FUSION_POSES, t_f), FUSION_CAP_LM, FUSION_CAP_OBS)
+
+
+def fusion_gn_config(cfg):
+    """bench.py's joint GN over the fused graph (bench.py:706-710): no
+    gauge clamping (the GPS priors anchor it) and no buckets."""
+    return gn.GNConfig(odo_info=cfg.odo_info, lm_info=cfg.lm_info, iterations=10,
+                       fix_first_poses=0, fix_first_landmarks=0, solve_bucket_step=0,
+                       edge_bucket_step=0, early_exit_tol=1e-4)
+
+
+def drifted_poses(poses):
+    """bench.py's drifted variant (bench.py:742-754): every session but the
+    first rigidly moved by an offset from FUSION_DRIFT_SEED."""
+    s = poses.shape[0]
+    offs = np.random.default_rng(FUSION_DRIFT_SEED).uniform(
+        [-0.6, -0.6, -0.04], [0.6, 0.6, 0.04], (s, 3))
+    offs[0] = 0.0
+    c, si = np.cos(offs[:, 2]), np.sin(offs[:, 2])
+    xy = np.einsum("sij,stj->sti", np.stack([np.stack([c, si], -1), np.stack([-si, c], -1)], 1),
+                   poses[:, :, :2])
+    return np.stack([xy[..., 0] + offs[:, None, 0], xy[..., 1] + offs[:, None, 1],
+                     poses[:, :, 2] + offs[:, None, 2]], -1).astype(np.float32)
+
+
+def map_error(track, g) -> float:
+    """Median distance of a map's landmarks to their nearest true cone."""
+    lm = g.lm_xy[:int(g.n_landmarks)].cpu().numpy()
+    return float(np.median(np.linalg.norm(lm[:, None, :] - track.cones_xy[None],
+                                          axis=-1).min(axis=1)))
+
+
+def fusion_flow(track, cfg, ins, poses_d, joint_gn=True, mark=lambda label: None):
+    """bench.py's fusion flow on the device of `ins` = (obs, valid, poses)
+    [S, t_f, ...]: the batched improved pass, `fuse_sessions(align=False)`,
+    then the drifted pass on `poses_d` and `fuse_sessions(align=True,
+    robust=True)`, each fusion with bench.py's joint GN unless not
+    `joint_gn`. `mark(label)` is called before each pass ("fusion",
+    "fusion_drifted") and with None after it. Returns the run's objects and
+    its numbers in the layout of FUSION_REFERENCE (the map errors only with
+    the joint GN)."""
+    obs, valid, poses = ins
+    S, t = obs.shape[:2]
+    cap, dev = cfg.capacity, obs.device
+    gcfg = fusion_gn_config(cfg) if joint_gn else None
+    gate = cfg.same_cone_threshold
+    mark("fusion")
+    states, outs, done = blocked_core_batched(initial_states(cap, S, dev), obs, valid, poses,
+                                              cfg, FUSION_BLOCK)
+    mark(None)
+    if done != [t] * S:
+        raise AssertionError(f"fusion sessions incomplete: done_upto {done}, want {[t] * S}")
+    fused, report = fuse_sessions(states.graph, cfg=gcfg, gate=gate, lm_info=states.lm_info_xy,
+                                  align=False)
+    mark("fusion_drifted")
+    states_d, outs_d = run_sequences_blocked_batched(initial_states(cap, S, dev), obs, valid,
+                                                     poses_d, cfg, block=FUSION_BLOCK)
+    mark(None)
+    fused_d, report_d = fuse_sessions(states_d.graph, cfg=gcfg, gate=2.0 * gate,
+                                      lm_info=states_d.lm_info_xy, align=True, robust=True)
+
+    def per_session(st, out):
+        ms = [session_metrics(st, out, s) for s in range(S)]
+        return {k: [m[k] for m in ms] for k in ("closure_frame", "n_landmarks", "n_obs")}
+
+    rep, rep_d = fusion_report(report), fusion_report(report_d)
+    got = dict(per_session(states, outs), fused_landmarks=rep["n_merged_landmarks"],
+               cross_session_merges=rep["n_cross_session_merges"],
+               drifted=per_session(states_d, outs_d),
+               fused_landmarks_drifted=rep_d["n_merged_landmarks"],
+               cross_session_merges_drifted=rep_d["n_cross_session_merges"])
+    if joint_gn:
+        got.update(map_error_fused_m=map_error(track, fused),
+                   map_error_fused_drifted_m=map_error(track, fused_d))
+    return dict(states=states, outs=outs, fused=fused, states_d=states_d, fused_d=fused_d,
+                metrics=got)
+
+
+def check_fusion(name, got) -> None:
+    """A fusion run's numbers against FUSION_REFERENCE: counts exact, map
+    errors within METRIC_ATOL_M (only those the run has)."""
+    for k, want in FUSION_REFERENCE.items():
+        if k not in got:
+            continue
+        ok = (abs(got[k] - want) <= METRIC_ATOL_M) if isinstance(want, float) else got[k] == want
+        if not ok:
+            raise AssertionError(f"fusion {name}: {k} = {got[k]}, JAX package {want}")
+
+
 def compare_session(what, st_b, out_b, st_1, out_1):
     """A session of a batched run against its own single-session run:
     discrete outputs and state exact (edges up to n_obs), values within
@@ -595,6 +750,7 @@ class Smoke:
         self.closure_s = None
         self.closure_graph = None
         self.firing_graph = None
+        self.fusion_run = None
 
     def log(self, msg: str) -> None:
         print(msg, flush=True)
@@ -918,6 +1074,82 @@ class Smoke:
                 self.batched_graph = graphs[0][0]
         self.batched_closure_solve()
 
+    # -- after batched
+    def fusion(self):
+        """bench.py's fusion section on the card (`fusion_flow`) in both
+        configurations: each held to FUSION_REFERENCE, every session of the
+        batched improved pass to its own single-session blocked run on the
+        card, and with the kernel one association launch per block for all
+        sessions, at ASSOC_FUSION's shape for each pass (the drifted pass's
+        sessions that fall back are finished per frame, one launch per
+        keyframe at the lap shape)."""
+        track = self.track
+        obs_n, valid_n, poses_n, t = fusion_scenario(track)
+        ins = [torch.tensor(x, device="cuda") for x in (obs_n, valid_n, poses_n)]
+        poses_d = torch.tensor(drifted_poses(poses_n), device="cuda")
+        cap = fusion_cap(t)
+        S = FUSION_SESSIONS
+        shapes, launches = {}, {}
+        label = [None]
+        kernel = keyframe_mod.associate_kernel
+
+        def recording_kernel(obs_xy, obs_type, lm_xy, *a, **kw):
+            if label[0] is not None:
+                shapes[label[0]].append((*obs_xy.shape[:-1], lm_xy.shape[-2]))
+            return kernel(obs_xy, obs_type, lm_xy, *a, **kw)
+
+        def mark(now):
+            if now is not None:
+                shapes[now], launches[now] = [], A.launches
+            else:
+                torch.cuda.synchronize()
+                launches[label[0]] = A.launches - launches[label[0]]
+            label[0] = now
+
+        paths = self.kernels["assoc"].setdefault("launches_by_path", {})
+        for name, cfg in fusion_configs(cap).items():
+            keyframe_mod.associate_kernel = recording_kernel
+            try:
+                run = fusion_flow(track, cfg, ins, poses_d, mark=mark)
+            finally:
+                keyframe_mod.associate_kernel = kernel
+            got = run["metrics"]
+            self.log(f"fusion {name}: {S} sessions x {t} frames, capacity {cap}: "
+                     + json.dumps(got) + f"; assoc launches {launches}")
+            check_fusion(name, got)
+            kc = got["closure_frame"]
+            blocks = max(kc) // FUSION_BLOCK + 1 + t // FUSION_BLOCK - min(kc) // FUSION_BLOCK
+            for path, (s_, n, m) in ASSOC_FUSION.items():
+                seen = shapes[path]
+                batched = [x for x in seen if x == (s_, n, m)]
+                per_frame = [x for x in seen if x != (s_, n, m)]
+                if name == "dense":
+                    ok = not seen and launches[path] == 0
+                elif path == "fusion":
+                    ok = len(batched) == launches[path] == blocks and not per_frame
+                else:
+                    ok = (batched and len(seen) == launches[path]
+                          and set(per_frame) <= {ASSOC_SHAPES["lap"]})
+                if not ok:
+                    raise AssertionError(f"fusion {name} {path}: {launches[path]} assoc launches "
+                                         f"at {sorted(set(seen))}")
+                if name == "kernel":
+                    paths[path] = launches[path]
+                    self.log(f"fusion kernel {path}: {launches[path]} assoc launches, "
+                             f"{len(batched)} of them for all {S} sessions at S x N x M = "
+                             f"{(s_, n, m)}, {len(per_frame)} per frame at {ASSOC_SHAPES['lap']}")
+            states, outs = run["states"], run["outs"]
+            for s in range(S):
+                one = run_sequence_blocked(initial_state(cap, "cuda"), ins[0][s], ins[1][s],
+                                           ins[2][s], cfg, block=FUSION_BLOCK)
+                compare_session(f"fusion {name} session {s}", session_state(states, s),
+                                blocked_mod._take(outs, s), *one)
+            self.log(f"fusion {name}: equal to FUSION_REFERENCE (counts exact, map errors within "
+                     f"{METRIC_ATOL_M} m) and every session of the batched pass to its own "
+                     f"single-session blocked run (discrete exact, values within {BATCHED_ATOL})")
+            if name == "dense":
+                self.fusion_run = (cfg, run)
+
     def batched_closure_solve(self):
         """The closure GN of the 16 closed graphs of phase `batched`, at full
         capacity, through the Cholesky kernel: one launch of [S, n, n] per
@@ -1125,10 +1357,9 @@ class Smoke:
         lap_ms = {}
         for name, lap in self.laps(obs, valid, poses).items():
             lap()                                        # warm-up
-            n_laps = IMPROVED_LAPS_TIMED if name.startswith("improved") else LAPS_TIMED
-            laps = sorted(cuda_ms(lap, reps=1, warmup=False) for _ in range(n_laps))
+            laps = sorted(cuda_ms(lap, reps=1, warmup=False) for _ in range(LAPS_TIMED))
             lap_ms[name] = ms = laps[len(laps) // 2]
-            self.log(f"timing: {name} lap: median {ms:.1f} ms of {n_laps} laps "
+            self.log(f"timing: {name} lap: median {ms:.1f} ms of {LAPS_TIMED} laps "
                      f"(min {laps[0]:.1f}, max {laps[-1]:.1f}) for {t} frames = "
                      f"{t / ms * 1e3:.1f} frames/s [{self.card}]")
         self.assoc_timing()
@@ -1145,6 +1376,7 @@ class Smoke:
         self.batched_kernel_timing()
         self.lap_profile(obs, valid, poses, lap_ms)
         self.batched_timing()
+        self.fusion_timing()
         for k in self.kernels.values():
             self.log(f"timing: {k['name']} per wrapper call {k['ms'] * 1e3:.1f} us, device "
                      f"{k['device_ms'] * 1e3:.2f} us per launch, plain twin "
@@ -1178,22 +1410,124 @@ class Smoke:
 
         runs = {f"batched S={S}": (S, batched_pass(S)) for S in BATCHED_SWEEP}
         runs[f"{BATCHED_SESSIONS} single-session laps in turn"] = (BATCHED_SESSIONS, singles)
+        step, steps = gn.gn_step, []
+
+        def counting(g, c):
+            steps.append(1)
+            return step(g, c)
+
         for name, (S, fn) in runs.items():
             fn()
             ms = statistics.median(cuda_ms(fn, reps=1, warmup=False)
                                    for _ in range(BATCHED_LAPS_TIMED))
-            busy, kernels, reads = profile_counts(fn)
+            steps.clear()
+            gn.gn_step = counting
+            try:
+                busy, kernels, reads = profile_counts(fn)
+            finally:
+                gn.gn_step = step
             per_pass[name] = (ms, kernels, reads)
             self.log(f"timing: {name}: median {ms:.1f} ms of {BATCHED_LAPS_TIMED} passes for "
                      f"{S} x {t} frames = {S * t / ms * 1e3:.1f} frames/s; device busy "
                      f"{busy:.1f} ms ({100 * busy / ms:.1f}%), {kernels} kernel launches and "
-                     f"{reads} device-to-host reads per pass [{self.card}]")
+                     f"{reads} device-to-host reads per pass, {len(steps)} closure-GN steps "
+                     f"[{self.card}]")
         k1, k16 = per_pass["batched S=1"][1], per_pass[f"batched S={BATCHED_SESSIONS}"][1]
         self.log(f"timing: batched S={BATCHED_SESSIONS} pass makes {k16 / k1:.2f} x the kernel "
                  f"launches of the S=1 pass ({k16} / {k1})")
         if k16 > 2 * k1:
             raise AssertionError(f"batched S={BATCHED_SESSIONS}: {k16} launches, more than "
                                  f"twice the {k1} of S=1")
+
+    def fusion_timing(self):
+        """bench.py's fusion section, piece by piece: the batched improved
+        pass at S = FUSION_SESSIONS, block 16, in both configurations
+        (frames/s, and for bench.py's dense one, from one profiled pass, its
+        device-busy share, launches and device-to-host reads); one `fuse_sessions(align=False)`
+        of phase `fusion`'s dense sessions alone, its joint GN alone and one
+        `torch.linalg.cholesky_ex` of the GN's reduced system; one drifted
+        `fuse_sessions(align=True, robust=True)` alone; and the association
+        kernel's Mahalanobis form at ASSOC_FUSION's shapes beside its twin,
+        with its bound, into the `kernels` line's "fusion"."""
+        obs_n, valid_n, poses_n, t = fusion_scenario(self.track)
+        ins = [torch.tensor(x, device="cuda") for x in (obs_n, valid_n, poses_n)]
+        cap = fusion_cap(t)
+        S = FUSION_SESSIONS
+        for name, cfg in fusion_configs(cap).items():
+            def one_pass(cfg=cfg):
+                return blocked_core_batched(initial_states(cap, S, "cuda"), *ins, cfg,
+                                            FUSION_BLOCK)
+            one_pass()
+            ms = statistics.median(cuda_ms(one_pass, reps=1, warmup=False) for _ in range(3))
+            self.log(f"timing: fusion batched improved pass {name} S={S} block {FUSION_BLOCK}: "
+                     f"median {ms:.1f} ms of 3 passes for {S} x {t} frames = "
+                     f"{S * t / ms * 1e3:.1f} frames/s [{self.card}]")
+            if name == "dense":     # bench.py's configuration; the profile is slow to read
+                busy, kernels, reads = profile_counts(one_pass)
+                self.log(f"timing: fusion batched improved pass dense: device busy {busy:.1f} "
+                         f"ms ({100 * busy / ms:.1f}%), {kernels} kernel launches and {reads} "
+                         f"device-to-host reads per pass [{self.card}]")
+        cfg, run = self.fusion_run
+        gcfg, gate = fusion_gn_config(cfg), cfg.same_cone_threshold
+        states, states_d = run["states"], run["states_d"]
+        pieces = {
+            "fuse_sessions(align=False) with the joint GN": functools.partial(
+                fuse_sessions, states.graph, cfg=gcfg, gate=gate, lm_info=states.lm_info_xy,
+                align=False),
+            "fuse_sessions(align=False) without the GN (the merge)": functools.partial(
+                fuse_sessions, states.graph, cfg=None, gate=gate, lm_info=states.lm_info_xy,
+                align=False),
+            "drifted fuse_sessions(align=True, robust=True) with the joint GN": functools.partial(
+                fuse_sessions, states_d.graph, cfg=gcfg, gate=2.0 * gate,
+                lm_info=states_d.lm_info_xy, align=True, robust=True),
+        }
+        merged, _ = pieces["fuse_sessions(align=False) without the GN (the merge)"]()
+        pieces["the joint GN alone"] = functools.partial(gn.optimize, merged, gcfg)
+        for what, fn in pieces.items():
+            fn()
+            ms = statistics.median(cuda_ms(fn, reps=1, warmup=False) for _ in range(3))
+            busy, kernels, reads = profile_counts(fn)
+            self.log(f"timing: {what}: median {ms:.2f} ms of 3, device busy {busy:.2f} ms "
+                     f"({100 * busy / ms:.1f}%), {kernels} kernel launches, {reads} "
+                     f"device-to-host reads [{self.card}]")
+        library, systems = torch.linalg.cholesky_ex, []
+
+        def recording(a, *args, **kw):
+            systems.append(a)
+            return library(a, *args, **kw)
+
+        torch.linalg.cholesky_ex = recording
+        try:
+            gn.gn_step(merged, gcfg)
+        finally:
+            torch.linalg.cholesky_ex = library
+        a = systems[0]
+        n = a.shape[-1]
+        ms = cuda_ms(functools.partial(torch.linalg.cholesky_ex, a), reps=5)
+        b_ms, b_by = bound(n ** 3 / 3, 2 * a.numel() * a.element_size())
+        self.log(f"timing: torch.linalg.cholesky_ex of the joint GN's reduced system, n={n}: "
+                 f"{ms:.3f} ms per call (bound {b_ms:.3f} ms, {b_by}) [{self.card}]")
+        k = self.kernels["assoc"]
+        k["fusion"] = {}
+        for path, (s_, n, m) in ASSOC_FUSION.items():
+            worlds = [assoc_world(n, m, i) for i in range(s_)]
+            oxy, ot, lxy, lt, cov = (torch.stack([w[j] for w in worlds]) for j in range(5))
+            call = functools.partial(A.associate_kernel, oxy, ot, lxy, lt, 9.21, cov,
+                                     mahalanobis=True)
+            nbytes = sum(x.numel() * x.element_size() for x in (oxy, ot, lxy, lt, cov, *call()))
+            r = dict(shape=[s_, n, m], launches=k["launches_by_path"][path],
+                     max_abs_err=k["max_abs_err"],
+                     ms=statistics.median(cuda_ms(call, reps=100) for _ in range(5)),
+                     device_ms=self.device_ms("assoc", "assoc_kernel", call, reps=50),
+                     plain_ms=cuda_ms(functools.partial(A.associate_plain, oxy, ot, lxy, lt, 9.21,
+                                                        cov, mahalanobis=True), reps=50),
+                     library_ms=None)
+            r["bound_ms"], r["bound_by"] = bound(s_ * assoc_flop(n, m, True), nbytes)
+            k["fusion"][path] = r
+            self.log(f"timing: assoc {path} mahalanobis S={s_} N={n} M={m}: per wrapper call "
+                     f"{r['ms'] * 1e3:.2f} us, device {r['device_ms'] * 1e3:.2f} us per launch, "
+                     f"plain twin {r['plain_ms'] * 1e3:.1f} us, bound {r['bound_ms'] * 1e3:.4g} us"
+                     f" ({r['bound_by']}) [{self.card}]")
 
     def batched_kernel_timing(self):
         """Both kernels at the batched path's shapes, each beside its twin and
@@ -1349,18 +1683,23 @@ class Smoke:
         """Device time per launch of kernel `name` (the `__global__` function
         `symbol`), from torch.profiler over `reps` calls of its wrapper `fn`.
         Logs every device row (unless not `rows`) and fails unless each call
-        launched the kernel exactly once. The profiler sometimes delivers
-        fewer device events than ran (whole calls missing), so a window that
-        shows fewer launches than calls is profiled again, up to
-        PROFILE_TRIES times."""
+        launched the kernel exactly once, by the wrapper's launch count. The
+        profiler sometimes delivers fewer device events than ran (whole
+        calls missing), so a window that shows fewer launches than calls is
+        profiled again, up to PROFILE_TRIES times; if the last one still
+        does, the time is the mean over the launches it saw (at least half
+        of them), and the log says so."""
         from torch.profiler import ProfilerActivity, profile
+        counter = {"assoc": A, "cholesky": C}[name]
         fn()
         torch.cuda.synchronize()
         for _ in range(PROFILE_TRIES):
+            before = counter.launches
             with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
                 for _ in range(reps):
                     fn()
                 torch.cuda.synchronize()
+            launched = counter.launches - before
             found = [e for e in prof.key_averages() if e.device_type.name == "CUDA"]
             kernel = [e for e in found if symbol in e.key]
             counts = [e.count for e in kernel]
@@ -1371,10 +1710,14 @@ class Smoke:
         for e in found if rows else ():
             self.log(f"timing: {name} device row {e.key[:70]!r}: {e.count / reps:g} per call, "
                      f"{e.self_device_time_total / e.count:.2f} us each [{self.card}]")
-        if counts != [reps]:
-            raise AssertionError(f"{name}: want one kernel launch per call, profiler rows "
+        if launched != reps or len(counts) != 1 or not reps // 2 <= counts[0] <= reps:
+            raise AssertionError(f"{name}: want one kernel launch per call: the wrapper "
+                                 f"launched {launched} in {reps} calls, profiler rows "
                                  f"{[(e.key, e.count) for e in kernel]}")
-        return kernel[0].self_device_time_total / reps / 1e3
+        if counts[0] < reps:
+            self.log(f"timing: {name}: device time per launch is the mean over the "
+                     f"{counts[0]} of {reps} launches the profiler saw")
+        return kernel[0].self_device_time_total / counts[0] / 1e3
 
     def lap_profile(self, obs, valid, poses, lap_ms):
         """Device-busy share of each lap, from one lap under torch.profiler:
@@ -1418,7 +1761,8 @@ def main() -> int:
         return 1
     smoke = Smoke()
     phases = (smoke.build, smoke.kernels_vs_plain, smoke.compat, smoke.kernel_association,
-              smoke.blocked, smoke.improved, smoke.batched, smoke.closure_solve, smoke.timing)
+              smoke.blocked, smoke.improved, smoke.batched, smoke.fusion, smoke.closure_solve,
+              smoke.timing)
     if sys.argv[1:] == ["--assoc-plans"]:
         phases = (smoke.build, smoke.assoc_plans, smoke.assoc_host)
     elif sys.argv[1:]:

@@ -182,11 +182,24 @@ def test_batched_fallback_sessions_finish_per_frame():
     ("periodic_gn_every", 16), ("use_gps_prior", True), ("localizer_refine", True),
     ("mapping_publish_refine", True), ("association", "mahalanobis")])
 def test_batched_refuses_improved_mode_fields(field, value):
-    stack, cap = _sessions()
+    """The improved mode's fields, which the batched sessions refused before
+    they were ported, now run: with each alone, every session of a short
+    batched pass (96 frames, block 8) equals its own blocked run
+    (tests/test_torch_batched_improved.py covers whole improved laps). The
+    refusal left is `run_sequence_blocked`'s: the EKF fusion, by name."""
+    (obs, valid, poses), cap = _sessions()
+    stack = tuple(x[:, :96] for x in (obs, valid, poses))
     cfg = dataclasses.replace(SlamConfig(capacity=GraphCapacity(*cap)), **{field: value})
-    with pytest.raises(NotImplementedError, match=field):
-        run_sequences_blocked_batched(initial_states(cfg.capacity, 3, "cpu"),
-                                      *_tensors(stack), cfg, block=8)
+    st, outs = run_sequences_blocked_batched(initial_states(cfg.capacity, 3, "cpu"),
+                                             *_tensors(stack), cfg, block=8)
+    for s in range(len(SEEDS)):
+        single = blocked.run_sequence_blocked(initial_state(cfg.capacity, "cpu"),
+                                              *(x[s] for x in _tensors(stack)), cfg, block=8)
+        _assert_session(_session_np((st, outs), s), (_np_tree(single[0]), _np_tree(single[1])),
+                        f"{field} session {s}")
+    with pytest.raises(NotImplementedError, match="use_ekf_fusion"):
+        run_sequences_blocked_batched(initial_states(cfg.capacity, 3, "cpu"), *_tensors(stack),
+                                      dataclasses.replace(cfg, use_ekf_fusion=True), block=8)
 
 
 def test_batched_refuses_first_with_kernel():

@@ -1,10 +1,10 @@
 """Tests that need a CUDA device: each hand-written kernel against its plain
 PyTorch twin on the card (one session and a batch of them), the wrappers'
-input checks, and the per-frame engine, the blocked pipeline and its
-batched sessions on the card against the port's own CPU runs. They skip
-without a
-device. The GPU machine has no JAX, so this file imports none; run it there
-with `python -m pytest --noconftest -m cuda tests/test_torch_cuda.py`
+input checks, and the per-frame engine, the blocked pipeline, its
+batched sessions and the fusion on the card against the port's own CPU
+runs. They skip without a device. The GPU machine has no JAX, so this
+file imports none; run it there with
+`python -m pytest --noconftest -m cuda tests/test_torch_cuda.py`
 (the suite's conftest imports JAX)."""
 import numpy as np
 import pytest
@@ -16,6 +16,7 @@ from tpuslam_torch.frontend.blocked import run_pass_blocked, run_sequences_block
 from tpuslam_torch.frontend.pipeline import run_pass
 from tpuslam_torch.ops import assoc_kernel as A
 from tpuslam_torch.ops import cholesky as C
+from tpuslam_torch.parallel import fusion
 from tpuslam_torch.parallel.batch import initial_states
 from tpuslam_torch.runtime.config import SlamConfig
 from tpuslam_torch.sim import SimConfig, simulate, skidpad
@@ -372,3 +373,48 @@ def test_batched_skidpad_on_cuda_matches_cpu(cuda, name):
     np.testing.assert_allclose(sg.graph.poses.cpu().numpy(), sc.graph.poses.numpy(), atol=1e-3)
     np.testing.assert_allclose(sg.graph.lm_xy.cpu().numpy(), sc.graph.lm_xy.numpy(), atol=1e-3)
     np.testing.assert_allclose(og.cone_distance.cpu().numpy(), oc.cone_distance.numpy(), atol=1e-3)
+
+
+def test_estimate_se2_on_cuda_matches_cpu(cuda):
+    """The ICP registration (tests/test_fusion.py's outlier case) on the card
+    against the CPU: the same match count, the transform within 1e-5."""
+    rng = np.random.default_rng(5)
+    dst = rng.uniform(-20, 20, (80, 2)).astype(np.float32)
+    types = rng.integers(1, 4, 80).astype(np.int32)
+    src = (dst + rng.normal(0, 0.05, dst.shape) + [0.4, -0.3]).astype(np.float32)
+    valid = np.ones(80, bool)
+    for trim in (0.0, 0.75):
+        got, want = (fusion.estimate_se2(*(torch.tensor(x, device=dev) for x in (
+            src, types, valid, dst, types, valid)), gate=3.0, iters=10, trim=trim)
+            for dev in (cuda, "cpu"))
+        assert int(got[1]) == int(want[1])
+        np.testing.assert_allclose(got[0].cpu().numpy(), want[0].numpy(), atol=1e-5)
+
+
+def test_fusion_on_cuda_matches_cpu(cuda):
+    """Three improved-mode skidpad sessions (Mahalanobis, GPS priors), merged
+    on the card and on the CPU, anchored and aligned: labels, landmark and
+    merge counts, matches and edges exact; transforms within 1e-5, merged
+    values within 1e-3 (the merge's sums are atomics on the card)."""
+    scens = [simulate(skidpad(), SimConfig(laps=1.3, seed=2 + s)) for s in range(3)]
+    t = min(len(sc.times) for sc in scens)
+    cfg = SlamConfig.improved(capacity=GraphCapacity(128, 128, 4096), association="mahalanobis",
+                              periodic_gn_every=0)
+    ins = [torch.tensor(np.stack([getattr(sc, f)[:t] for sc in scens])) for f in
+           ("obs", "obs_valid", "odom_poses")]
+    st, _ = run_sequences_blocked_batched(initial_states(cfg.capacity, 3, "cpu"),
+                                          ins[0].float(), ins[1], ins[2].float(), cfg, block=8)
+    g, info = st.graph, st.lm_info_xy
+    for align in (False, True):
+        (fc, rc), (fg, rg) = (fusion.fuse_sessions(
+            type(g)(**{k: v.to(dev) for k, v in vars(g).items()}), cfg=None, gate=1.2,
+            lm_info=info.to(dev), align=align, robust=True) for dev in ("cpu", cuda))
+        for k in ("labels", "n_merged_landmarks", "n_cross_session_merges"):
+            assert torch.equal(rg[k].cpu(), rc[k]), k
+        assert torch.equal(rg["n_align_matched"][1:].cpu(), rc["n_align_matched"][1:])
+        np.testing.assert_allclose(rg["tforms"].cpu().numpy(), rc["tforms"].numpy(), atol=1e-5)
+        for f in ("n_poses", "n_landmarks", "n_obs", "lm_type", "obs_pose", "obs_lm"):
+            assert torch.equal(getattr(fg, f).cpu(), getattr(fc, f)), f
+        for f in ("poses", "lm_xy", "odo_w", "prior_pose"):
+            np.testing.assert_allclose(getattr(fg, f).cpu().numpy(), getattr(fc, f).numpy(),
+                                       atol=1e-3, err_msg=f)

@@ -1,7 +1,7 @@
 """The port and its GPU smoke script import without JAX and without the JAX
 package: in a fresh interpreter with both `jax` and `tpuslam` made
-unimportable, every module of `tpuslam_torch` (the blocked pipeline and the
-batched sessions among them), `chip_smoke` and the GPU tests
+unimportable, every module of `tpuslam_torch` (the blocked pipeline, the
+batched sessions and the fusion among them), `chip_smoke` and the GPU tests
 `tests/test_torch_cuda.py` import."""
 import subprocess
 import sys
@@ -21,6 +21,8 @@ for mod in pkgutil.walk_packages(tpuslam_torch.__path__, "tpuslam_torch."):
 from tpuslam_torch.frontend.blocked import run_pass_blocked, run_sequence_blocked
 from tpuslam_torch.frontend.blocked import run_sequences_blocked_batched
 from tpuslam_torch.parallel.batch import initial_states
+from tpuslam_torch.parallel.fusion import fuse_sessions
+from tpuslam_torch.parallel.multisession import stack_graphs
 import chip_smoke
 sys.path.insert(0, "tests")
 import test_torch_cuda

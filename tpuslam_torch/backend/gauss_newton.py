@@ -20,11 +20,15 @@ per-landmark counts and its [3W, L] coupling are `index_add_` scatters.
 
 Batched sessions: `gn_step` and `optimize` also take a stacked graph of S
 independent sessions (a leading axis S on every field), as the JAX package's
-vmapped closure GN does. A batch is assembled and solved at full capacity
-(its `vmap_safe_gn`: no buckets, which would differ between sessions), with
+vmapped closure GN does. A batch of S > 1 is assembled and solved at full
+capacity (its `vmap_safe_gn`: no buckets, which would differ between
+sessions; a batch of one is solved as its single graph), with
 one Cholesky of the [S, 3P, 3P] reduced systems per iteration, and each
 session stops at its own iteration count and tolerance: a session that has
 converged, or is not enabled, is held by a mask while the others go on.
+`window_gn_step` / `optimize_window` take a stacked graph too, with each
+session's window anchored at its own `end` / `end_obs`: the sessions that
+fire in a block of the batched pipeline are one batched solve.
 
 Host synchronisation: each single-graph `gn_step` reads (n_poses, n_obs)
 once to pick its buckets, and `optimize` and `optimize_window` read the
@@ -357,9 +361,19 @@ def _iterate(g: FactorGraph, cfg: GNConfig, step, enable) -> FactorGraph:
     """Up to `cfg.iterations` calls of `step`, stopping early once an
     iteration's max |update| (poses and landmarks) drops to
     `cfg.early_exit_tol` (0 = never); `enable=False` returns `g`. A stacked
-    batch goes to `_iterate_batched`."""
-    if g.n_poses.dim():
+    batch goes to `_iterate_batched`, and a stack of one session to this
+    loop (the same ops as its single graph)."""
+    if g.n_poses.dim() and g.n_poses.shape[0] > 1:
         return _iterate_batched(g, cfg, step, enable)
+    if g.n_poses.dim():
+        def squeeze(x):
+            return _graph_fields(lambda v: v[0], x)
+
+        def unsqueeze(x):
+            return _graph_fields(lambda v: v[None], x)
+
+        return unsqueeze(_iterate(squeeze(g), cfg, lambda gg: squeeze(step(unsqueeze(gg))),
+                                  None if enable is None else enable.reshape(())))
     if enable is not None and not bool(enable):
         return g
     for _ in range(cfg.iterations):
@@ -378,8 +392,32 @@ def optimize(g: FactorGraph, cfg: GNConfig, enable=None) -> FactorGraph:
     `cfg.early_exit_tol` (0 = never). `enable=False` returns `g` unchanged.
     A stacked graph [S] is optimized session by session in one batch, with
     `enable` [S]: each session stops at its own iteration, and a disabled
-    one comes back unchanged."""
+    one comes back unchanged. A stack of one session is optimized as its
+    single graph (bucketed as `cfg` says), so both give the same bits."""
+    if g.n_poses.dim() and g.n_poses.shape[0] == 1:
+        if enable is not None and not bool(enable.reshape(-1)[0]):
+            return g
+        return _graph_fields(lambda x: x[None],
+                             optimize(_graph_fields(lambda x: x[0], g), cfg))
     return _iterate(g, cfg, lambda gg: gn_step(gg, cfg), enable)
+
+
+def _graph_fields(fn, g: FactorGraph) -> FactorGraph:
+    """`fn` applied to every field of `g`."""
+    return FactorGraph(**{f.name: fn(getattr(g, f.name)) for f in dataclasses.fields(g)})
+
+
+def _take(x, idx, sess):
+    """Rows `idx` [S, K] of each session's `x` [S, R, ...]; `sess` is
+    arange(S)[:, None], or None for one session (one plain gather)."""
+    return x[0][idx[0]][None] if sess is None else x[sess, idx]
+
+
+def _flat(idx, stride: int, sess):
+    """Per-session indices [S, K] into one flat buffer of S blocks of
+    `stride` rows, flattened: session s at offset s * stride (`sess` as in
+    `_take`)."""
+    return (idx if sess is None else idx + sess * stride).reshape(-1)
 
 
 def window_gn_step(g: FactorGraph, cfg: GNConfig, window: int, edge_window: int,
@@ -404,75 +442,98 @@ def window_gn_step(g: FactorGraph, cfg: GNConfig, window: int, edge_window: int,
 
     `end` / `end_obs` (int32 tensors) anchor the window at a past pose and
     edge count instead of the graph head; later poses and edges are left
-    out and receive an exact-zero update."""
+    out and receive an exact-zero update.
+
+    A stacked graph [S] takes `end` / `end_obs` [S] (and `lm_prior` [S, L,
+    2]): each session's window and edge window sit at its own offsets, and
+    the S systems are assembled and solved as one batch. One session (a
+    single graph, or S = 1) solves an unbatched system, so both give the
+    same bits."""
+    if g.n_poses.dim() == 0:
+        one = _graph_fields(lambda x: x[None], g)
+        out = window_gn_step(one, cfg, window, edge_window, landmarks,
+                             None if lm_prior is None else lm_prior[None],
+                             None if end is None else end.reshape(1),
+                             None if end_obs is None else end_obs.reshape(1))
+        return _graph_fields(lambda x: x[0], out)
     W, EW = window, edge_window
-    P, L, E = g.poses.shape[0], g.lm_xy.shape[0], g.obs_pose.shape[0]
+    S, P = g.poses.shape[:2]
+    L, E = g.lm_xy.shape[1], g.obs_pose.shape[1]
     if W > P or EW > E:
         raise ValueError(f"window {W} / edge window {EW} exceed the graph's capacity "
                          f"({P} poses, {E} edges)")
     dtype, dev = g.poses.dtype, g.poses.device
-    n = g.n_poses if end is None else end
-    e_stop = g.n_obs if end_obs is None else end_obs
+    sess = torch.arange(S, device=dev)[:, None] if S > 1 else None
+    n = (g.n_poses if end is None else end)[:, None]
+    e_stop = (g.n_obs if end_obs is None else end_obs)[:, None]
     w0 = torch.clamp(n - W, min=0)
     kg = w0 + torch.arange(W, device=dev)                 # global pose index per row
     kgl = kg.long()
-    poses_w = g.poses[kgl]
+    poses_w = _take(g.poses, kgl, sess)
 
     # odometry chain within the window, plus the boundary edge's J_j half
-    prev0 = g.poses[torch.clamp(w0 - 1, min=0).reshape(1).long()]
-    p_prev = torch.cat([prev0, poses_w[:-1]])
+    prev0 = _take(g.poses, torch.clamp(w0 - 1, min=0).long(), sess)
+    p_prev = torch.cat([prev0, poses_w[:, :-1]], dim=1)
     odo_valid = (kg >= 1) & (kg < n)
-    r_o, j_oi, j_oj = odometry_residuals(p_prev, poses_w, g.odo_meas[kgl])
-    w_o = cfg.odo_info * odo_valid.to(dtype) * g.odo_w[kgl]
-    w3 = w_o[:, None, None]
+    r_o, j_oi, j_oj = odometry_residuals(p_prev, poses_w, _take(g.odo_meas, kgl, sess))
+    w_o = cfg.odo_info * odo_valid.to(dtype) * _take(g.odo_w, kgl, sess)
+    w3 = w_o[..., None, None]
     jti = j_oi.transpose(-1, -2)
     jtj = j_oj.transpose(-1, -2)
     a_ii = w3 * (jti @ j_oi)
     a_jj = w3 * (jtj @ j_oj)
     h_off = w3 * (jti @ j_oj)                             # block (r-1, r)
-    g_i = w_o[:, None] * (jti @ r_o[..., None])[..., 0]
-    g_j = w_o[:, None] * (jtj @ r_o[..., None])[..., 0]
-    h_diag = torch.cat([a_jj[:-1] + a_ii[1:], a_jj[-1:]])
-    h_off = torch.cat([torch.zeros_like(h_off[:1]), h_off[1:]])
-    gp = torch.cat([g_j[:-1] + g_i[1:], g_j[-1:]])
+    g_i = w_o[..., None] * (jti @ r_o[..., None])[..., 0]
+    g_j = w_o[..., None] * (jtj @ r_o[..., None])[..., 0]
+    h_diag = torch.cat([a_jj[:, :-1] + a_ii[:, 1:], a_jj[:, -1:]], dim=1)
+    h_off = torch.cat([torch.zeros_like(h_off[:, :1]), h_off[:, 1:]], dim=1)
+    gp = torch.cat([g_j[:, :-1] + g_i[:, 1:], g_j[:, -1:]], dim=1)
 
     # GPS/heading priors of window poses
-    prior_info_w = g.prior_info[kgl]
+    prior_info_w = _take(g.prior_info, kgl, sess)
     pose_valid = (kg < n).to(dtype)
-    ixy = prior_info_w[:, 0] * pose_valid
-    ith = prior_info_w[:, 1] * pose_valid
+    ixy = prior_info_w[..., 0] * pose_valid
+    ith = prior_info_w[..., 1] * pose_valid
     eye_xy = torch.diag(torch.tensor([1.0, 1.0, 0.0], dtype=dtype, device=dev))
     eye_th = torch.diag(torch.tensor([0.0, 0.0, 1.0], dtype=dtype, device=dev))
-    h_diag = h_diag + ixy[:, None, None] * eye_xy + ith[:, None, None] * eye_th
-    r_pr = poses_w - g.prior_pose[kgl]
-    r_pr = torch.cat([r_pr[:, :2], se2.wrap_angle(r_pr[:, 2:])], dim=1)
+    h_diag = h_diag + ixy[..., None, None] * eye_xy + ith[..., None, None] * eye_th
+    r_pr = poses_w - _take(g.prior_pose, kgl, sess)
+    r_pr = torch.cat([r_pr[..., :2], se2.wrap_angle(r_pr[..., 2:])], dim=-1)
     gp = gp + r_pr * torch.stack([ixy, ixy, ith], dim=-1)
 
-    # trailing landmark edges whose pose lies in the window
+    # trailing landmark edges whose pose lies in the window; each session's
+    # sums go to its own rows of one flat buffer
     e0 = torch.clamp(e_stop - EW, min=0)
     ke = (e0 + torch.arange(EW, device=dev)).long()
-    op = g.obs_pose[ke]
-    ol = torch.clamp(g.obs_lm[ke].long(), 0, L - 1)
+    op = _take(g.obs_pose, ke, sess)
+    ol = torch.clamp(_take(g.obs_lm, ke, sess).long(), 0, L - 1)
     in_win = (ke < e_stop) & (op >= w0)
     w_l = cfg.lm_info * in_win.to(dtype)
     local = torch.clamp(op - w0, 0, W - 1).long()
-    r_l, j_lp, j_ll = landmark_residuals(poses_w[local], g.lm_xy[ol], g.obs_xy[ke])
-    wl3 = w_l[:, None, None]
+    r_l, j_lp, j_ll = landmark_residuals(_take(poses_w, local, sess), _take(g.lm_xy, ol, sess),
+                                         _take(g.obs_xy, ke, sess))
+    wl3 = w_l[..., None, None]
     jtp = j_lp.transpose(-1, -2)
-    h_diag = h_diag.index_add(0, local, wl3 * (jtp @ j_lp))
-    gp = gp.index_add(0, local, w_l[:, None] * (jtp @ r_l[..., None])[..., 0])
+    row = _flat(local, W, sess)
+    h_diag = h_diag.reshape(S * W, 3, 3).index_add(
+        0, row, (wl3 * (jtp @ j_lp)).reshape(-1, 3, 3)).reshape(S, W, 3, 3)
+    gp = gp.reshape(S * W, 3).index_add(
+        0, row, (w_l[..., None] * (jtp @ r_l[..., None])[..., 0]).reshape(-1, 3)).reshape(S, W, 3)
 
     # gauge clamping by global index (the rows gn_step clamps)
     free = (kg >= cfg.fix_first_poses) & (kg < n)
-    fpb = free.to(dtype)[:, None, None]
+    fpb = free.to(dtype)[..., None, None]
     eye3 = torch.eye(3, dtype=dtype, device=dev)
     h_diag = h_diag * fpb + eye3 * (1.0 - fpb)
-    prev_free = torch.cat([free.new_zeros(1), free[:-1]])
-    h_off = h_off * (free & prev_free).to(dtype)[:, None, None]
-    gp = gp * free.to(dtype)[:, None]
+    prev_free = torch.cat([free.new_zeros(S, 1), free[:, :-1]], dim=1)
+    h_off = h_off * (free & prev_free).to(dtype)[..., None, None]
+    gp = gp * free.to(dtype)[..., None]
     if cfg.damping:
         h_diag = h_diag + eye3 * cfg.damping * fpb
 
+    # one session solves unbatched (see the docstring)
+    solve_in = (lambda x: x[0]) if S == 1 else (lambda x: x)
+    solve_out = (lambda x: x[None]) if S == 1 else (lambda x: x)
     hpp = densify_hpp(h_diag, h_off)
     if landmarks:
         # Hll from each landmark's total edge count (the out-of-window
@@ -481,40 +542,46 @@ def window_gn_step(g: FactorGraph, cfg: GNConfig, window: int, edge_window: int,
         kl = torch.arange(L, device=dev)
         lm_all = g.obs_lm.long()
         counted = (torch.arange(E, device=dev) < e_stop) & (lm_all >= 0) & (lm_all < L)
-        n_tot = torch.zeros(L + 1, dtype=dtype, device=dev).index_add(
-            0, torch.where(counted, lm_all, L), counted.to(dtype))[:L]
-        flm = ((kl >= cfg.fix_first_landmarks) & (kl < g.n_landmarks)).to(dtype)
+        n_tot = torch.zeros(S * (L + 1), dtype=dtype, device=dev).index_add(
+            0, _flat(torch.where(counted, lm_all, L), L + 1, sess),
+            counted.to(dtype).reshape(-1)).reshape(S, L + 1)[:, :L]
+        flm = ((kl >= cfg.fix_first_landmarks) & (kl < g.n_landmarks[:, None])).to(dtype)
         eye2 = torch.eye(2, dtype=dtype, device=dev)
         hll_d = cfg.lm_info * n_tot * flm
-        hll = torch.where(hll_d > 0, hll_d, 1.0)[:, None, None] * eye2
+        hll = torch.where(hll_d > 0, hll_d, 1.0)[..., None, None] * eye2
         if cfg.damping:
-            hll = hll + eye2 * cfg.damping * flm[:, None, None]
-        w_e = wl3 * (jtp @ j_ll)                             # [EW, 3, 2]
-        wc = torch.zeros((W * L, 3, 2), dtype=dtype, device=dev).index_add(
-            0, local * L + ol, w_e)
-        wc = wc.reshape(W, L, 3, 2).permute(0, 2, 1, 3).reshape(3 * W, L, 2)
-        mask = free.to(dtype).repeat_interleave(3)[:, None] * flm[None, :]
+            hll = hll + eye2 * cfg.damping * flm[..., None, None]
+        w_e = wl3 * (jtp @ j_ll)                             # [S, EW, 3, 2]
+        wc = torch.zeros((S * W * L, 3, 2), dtype=dtype, device=dev).index_add(
+            0, _flat(local * L + ol, W * L, sess), w_e.reshape(-1, 3, 2))
+        wc = wc.reshape(S, W, L, 3, 2).permute(0, 1, 3, 2, 4).reshape(S, 3 * W, L, 2)
+        mask = free.to(dtype).repeat_interleave(3, dim=1)[..., None] * flm[:, None, :]
         jtl = j_ll.transpose(-1, -2)
-        gl = torch.zeros((L, 2), dtype=dtype, device=dev).index_add(
-            0, ol, w_l[:, None] * (jtl @ r_l[..., None])[..., 0]) * flm[:, None]
+        lrow = _flat(ol, L, sess)
+        gl = torch.zeros((S * L, 2), dtype=dtype, device=dev).index_add(
+            0, lrow, (w_l[..., None] * (jtl @ r_l[..., None])[..., 0]).reshape(-1, 2)
+        ).reshape(S, L, 2) * flm[..., None]
         if lm_prior is not None:
             # the marginalized edges' restoring gradient, centred at lm_prior
-            n_in = torch.zeros(L, dtype=dtype, device=dev).index_add(0, ol, in_win.to(dtype))
+            n_in = torch.zeros(S * L, dtype=dtype, device=dev).index_add(
+                0, lrow, in_win.to(dtype).reshape(-1)).reshape(S, L)
             n_out = torch.clamp(n_tot - n_in, min=0.0)
-            gl = gl + (cfg.lm_info * n_out * flm)[:, None] * (g.lm_xy - lm_prior)
-        dp, dl = schur_solve_split(hpp, wc[..., 0] * mask, wc[..., 1] * mask, hll,
-                                   gp.reshape(-1), gl)
+            gl = gl + (cfg.lm_info * n_out * flm)[..., None] * (g.lm_xy - lm_prior)
+        dp, dl = schur_solve_split(*(solve_in(x) for x in (
+            hpp, wc[..., 0] * mask, wc[..., 1] * mask, hll, gp.reshape(S, -1), gl)))
+        dp, dl = solve_out(dp), solve_out(dl)
         lm_xy = g.lm_xy + dl
     else:
-        c = torch.linalg.cholesky_ex(hpp).L
-        dp = torch.cholesky_solve(-gp.reshape(-1, 1), c)[:, 0]
+        c = torch.linalg.cholesky_ex(solve_in(hpp)).L
+        dp = solve_out(torch.cholesky_solve(solve_in(-gp.reshape(S, -1, 1)), c)[..., 0])
         lm_xy = g.lm_xy
-    new_w = poses_w + dp.reshape(W, 3)
+    new_w = poses_w + dp.reshape(S, W, 3)
     # clamped rows get an exact-zero update; wrap_angle is not a bit-exact
     # identity in f32, so they keep their value
-    theta = torch.where(free, se2.wrap_angle(new_w[:, 2]), new_w[:, 2])
-    new_w = torch.cat([new_w[:, :2], theta[:, None]], dim=1)
-    return dataclasses.replace(g, poses=g.poses.index_put((kgl,), new_w), lm_xy=lm_xy)
+    theta = torch.where(free, se2.wrap_angle(new_w[..., 2]), new_w[..., 2])
+    new_w = torch.cat([new_w[..., :2], theta[..., None]], dim=-1)
+    poses = g.poses.reshape(S * P, 3).index_put((_flat(kgl, P, sess),), new_w.reshape(-1, 3))
+    return dataclasses.replace(g, poses=poses.reshape(S, P, 3), lm_xy=lm_xy)
 
 
 def optimize_window(g: FactorGraph, cfg: GNConfig, window: int, edge_window: int,
@@ -523,7 +590,10 @@ def optimize_window(g: FactorGraph, cfg: GNConfig, window: int, edge_window: int
     """`optimize`'s loop around `window_gn_step` (fixed-lag refinement).
     With `landmarks=True` the out-of-window edges' prior is centred at the
     entry estimate of the map for every iteration. `enable=False` returns
-    `g` unchanged; `end` / `end_obs` as in `window_gn_step`."""
+    `g` unchanged; `end` / `end_obs` as in `window_gn_step`. A stacked
+    graph [S] takes `enable`, `end` and `end_obs` [S]: one batched step per
+    iteration for all sessions, each stopping at its own iteration, and a
+    disabled session comes back bit for bit."""
     _check_precision(cfg, g.poses)
     lm_prior = g.lm_xy if landmarks else None
     return _iterate(g, cfg, lambda gg: window_gn_step(

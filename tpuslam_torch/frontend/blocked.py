@@ -61,12 +61,16 @@ The improved mode runs here as in the JAX package:
 Batched sessions (`run_sequences_blocked_batched`, `blocked_core_batched`;
 the JAX package vmaps `blocked_core` over them): every block function takes
 a leading session axis S, so one block of S independent sessions is one
-stream of ops, and a single session is the case S = 1 (`_one_session`). A
+stream of ops, and a single session (`blocked_core`) is the case S = 1. A
 session that has closed or fallen back has its frames masked out of later
 blocks, which makes them exact no-ops for it; each block reads its [S]
-flags once; the closure GN runs once for all sessions, at full capacity;
-the localization blocks start at the earliest closed session's block. The
-improved mode is not batched yet (NotImplementedError, naming the field).
+flags once; the closure GN runs once for all sessions, at full capacity
+(a single session: on its buckets, as the JAX package's unbatched path);
+the localization blocks start at the earliest closed session's block. In
+the improved mode the [S, B] firing mask comes with the block's flags, and
+the sessions that fire in a block are one batched periodic GN (each
+session's window at its own offsets, the others held bit for bit); each
+session's Mahalanobis gate reads its own block-start information.
 
 On the CPU, results equal `run_sequence`'s bit for bit wherever the JAX
 package's blocked path equals its per-frame path (tests/test_torch_blocked.py);
@@ -572,19 +576,6 @@ def _take(x, s: int):
     return None if x is None else x[s]
 
 
-def _one_session(block_fn, state: SlamState, *xs, cfg: SlamConfig):
-    """`block_fn` on one session: a stacked state of one, the session's
-    inputs with a leading axis of one, and its results taken back out."""
-    return _take(block_fn(map_state(lambda v: v[None], state), *(x[None] for x in xs), cfg), 0)
-
-
-def _packet(g, n_lm, cur, pose, cfg: SlamConfig):
-    """`_packet_series` for one session's graph `g`."""
-    az, dist, ctype = _packet_series(g.lm_xy[None], g.lm_type[None], n_lm[None], cur[None],
-                                     pose[None], cfg)
-    return az[0], dist[0], ctype[0]
-
-
 def _rows(outs: KeyframeOutputs, lo: int, hi: int) -> KeyframeOutputs:
     return _map_outputs(lambda v: v[lo:hi], outs)
 
@@ -600,92 +591,141 @@ def _in_bounds(p, cfg: SlamConfig):
 
 
 def _periodic_fires(count0, ins, n_lm_series, cfg: SlamConfig):
-    """[B] whether the periodic GN fires after each frame of a block, from
-    the keyframe count before the block and the frames it inserted."""
-    return ins & _periodic_due(count0 + torch.cumsum(ins, 0, dtype=_I32), n_lm_series, cfg)
+    """[S, B] whether the periodic GN fires after each frame of a block,
+    from each session's keyframe count before the block [S] and the frames
+    it inserted [S, B]."""
+    return ins & _periodic_due(count0[:, None] + torch.cumsum(ins, -1, dtype=_I32),
+                               n_lm_series, cfg)
 
 
 def _read_flags(flags, fires):
-    """One device-to-host read of a block's flags and, with a periodic GN,
-    its [B] firing mask: (flags as ints, firing mask as bools or None)."""
+    """One device-to-host read of a block's [S] flags and, with a periodic
+    GN, its [S, B] firing mask: (each flag as a list of S ints, the firing
+    mask as S lists of bools or None)."""
     t = torch.stack([f.to(_I32) for f in flags])
     if fires is None:
         return t.tolist(), None
-    read = torch.cat([t, fires.to(_I32)]).tolist()
-    return read[:len(flags)], [bool(x) for x in read[len(flags):]]
+    read = torch.cat([t.reshape(-1), fires.to(_I32).reshape(-1)]).tolist()
+    S, B = fires.shape
+    return ([read[i * S:(i + 1) * S] for i in range(len(flags))],
+            [[bool(x) for x in read[t.numel() + s * B:t.numel() + (s + 1) * B]]
+             for s in range(S)])
 
 
-def _patch_last(outs: KeyframeOutputs, g, aux, cfg: SlamConfig, pose=None) -> KeyframeOutputs:
-    """The block's last frame after a periodic GN at its end: its cone
-    packet from map `g`, published from `pose` [1, 3] when given."""
-    pose = outs.pose[-1:] if pose is None else pose
-    az, dist, ctype = _packet(g, aux["n_lm_series"][-1:], aux["cur_series"][-1:], pose, cfg)
+def _patch_last(outs: KeyframeOutputs, g, aux, cfg: SlamConfig, sel,
+                pose=None) -> KeyframeOutputs:
+    """The block's last frame after a periodic GN at its end, for the
+    sessions `sel` (S host bools): its cone packet from each session's map
+    `g`, published from `pose` [S, 1, 3] when given."""
+    last = outs.pose[:, -1:] if pose is None else pose
+    az, dist, ctype = _packet_series(g.lm_xy, g.lm_type, aux["n_lm_series"][:, -1:],
+                                     aux["cur_series"][:, -1:], last, cfg)
+    at = _enable(sel, last.device)
+
+    def put(x, v):
+        if at is not None:
+            v = torch.where(at.reshape(-1, *([1] * (x.dim() - 1))), v, x[:, -1:])
+        return torch.cat([x[:, :-1], v], dim=1)
     return dataclasses.replace(
-        outs, pose=torch.cat([outs.pose[:-1], pose]),
-        cone_azimuth=torch.cat([outs.cone_azimuth[:-1], az]),
-        cone_distance=torch.cat([outs.cone_distance[:-1], dist]),
-        cone_type=torch.cat([outs.cone_type[:-1], ctype]))
+        outs, pose=put(outs.pose, last), cone_azimuth=put(outs.cone_azimuth, az),
+        cone_distance=put(outs.cone_distance, dist), cone_type=put(outs.cone_type, ctype))
 
 
-def _mapping_periodic(ns: SlamState, outs, aux, fires, closed: bool, kcf: int, obs, poses,
+def _enable(flags, device):
+    """A batched GN's [S] enable mask from S host flags; None (every
+    session) when all are set, which costs a one-session GN no read."""
+    return None if all(flags) else torch.tensor(flags, device=device)
+
+
+def _midblock_firings(g, cfg: SlamConfig, firing, n_pose_series, n_obs_series=None):
+    """The mid-block firings of a batched block, in the order of their
+    frames: firing[s] lists session s's firing frames. Round j runs every
+    session's j-th firing as one batched window GN, each anchored at its
+    firing frame's pose (and edge) counts; a session with fewer firings
+    sits the round out, bit for bit."""
+    S = len(firing)
+    dev = n_pose_series.device
+    for j in range(max(map(len, firing), default=0)):
+        at = torch.tensor([x[j] if j < len(x) else 0 for x in firing], device=dev)[:, None]
+        g = periodic_gn(g, cfg, end=torch.gather(n_pose_series, 1, at)[:, 0],
+                        end_obs=(None if n_obs_series is None
+                                 else torch.gather(n_obs_series, 1, at)[:, 0]),
+                        enable=_enable([j < len(firing[s]) for s in range(S)], dev))
+    return g
+
+
+def _mapping_periodic(ns: SlamState, outs, aux, fires, act, closed, kcf, obs, poses,
                       cfg: SlamConfig):
-    """The periodic GN of a committed mapping block. Either its period is a
-    whole number of blocks, and it fires only on the block's last frame
-    (exactly where the per-frame path fires); or it divides the block, and
-    each firing frame's fixed-lag solve runs after the block's mapping, in
-    the order of the frames, anchored at that frame's pose and edge counts;
-    frames after a firing publish their refine against the block's final
-    map. A firing the block cannot reproduce (mid-block in the first
-    regime, or on the closure frame) returns fallback True instead.
-    Returns (fallback, state, outputs)."""
-    B = len(fires)
+    """The periodic GN of a committed mapping block, from the block's one
+    read: `fires` [S][B], `closed` and `kcf` [S], and `act` [S] (mapping,
+    and not fallen back in the block). Either its period is a whole number
+    of blocks, and it fires only on the block's last frame (exactly where
+    the per-frame path fires): one GN enabled for the sessions firing
+    there. Or it divides the block, and each firing frame's fixed-lag solve
+    runs after the block's mapping, in the order of the frames, anchored
+    at that frame's pose and edge counts (`_midblock_firings`); frames
+    after a firing publish their refine against the block's final map. A
+    firing the block cannot reproduce (mid-block in the first regime, or
+    on the closure frame) is a fallback for its session instead. Returns
+    (fallback [S] bools, state, outputs)."""
+    S, B = len(fires), len(fires[0])
+    dev = poses.device
     g2 = ns.graph
     if _midblock_gn(cfg, B):
-        if closed and fires[min(max(kcf, 0), B - 1)]:
-            return True, ns, outs
-        for fj in (f for f in range(B) if fires[f]):
-            g2 = periodic_gn(g2, cfg, end=aux["n_pose_series"][fj], end_obs=aux["n_obs_series"][fj])
-        if cfg.mapping_publish_refine and any(fires):
+        fb = [act[s] and bool(closed[s]) and fires[s][min(max(kcf[s], 0), B - 1)]
+              for s in range(S)]
+        gate = [act[s] and not fb[s] for s in range(S)]
+        firing = [[f for f in range(B) if fires[s][f]] if gate[s] else [] for s in range(S)]
+        g2 = _midblock_firings(g2, cfg, firing, aux["n_pose_series"], aux["n_obs_series"])
+        if cfg.mapping_publish_refine and any(firing):
             lm_idx, matched = aux["pub_rows"]
-            ref = _publish_refine(poses, g2.lm_xy[lm_idx], matched, _body_xy(obs, cfg), cfg)
-            fired_before = torch.tensor([any(fires[:f]) for f in range(B)], device=poses.device)
+            lm = _rows_at(g2.lm_xy, lm_idx.reshape(S, -1)).reshape(*lm_idx.shape, 2)
+            ref = _publish_refine(poses, lm, matched, _body_xy(obs, cfg), cfg)
+            fired_before = torch.tensor([[gate[s] and any(fires[s][:f]) for f in range(B)]
+                                         for s in range(S)], device=dev)
             upd = fired_before & (aux["n_pose_series"] - 1 >= cfg.periodic_gn_every)
-            outs = dataclasses.replace(outs, pose=torch.where(upd[:, None], ref, outs.pose))
+            outs = dataclasses.replace(outs, pose=torch.where(upd[..., None], ref, outs.pose))
+        do_p = [gate[s] and fires[s][-1] for s in range(S)]
     else:
-        if any(fires[:-1]) or (fires[-1] and closed):
-            return True, ns, outs
-        if fires[-1]:
-            g2 = periodic_gn(g2, cfg)
-    if fires[-1]:
+        fb = [act[s] and (any(fires[s][:-1]) or (fires[s][-1] and bool(closed[s])))
+              for s in range(S)]
+        do_p = [act[s] and not fb[s] and fires[s][-1] for s in range(S)]
+        if any(do_p):
+            g2 = periodic_gn(g2, cfg, enable=_enable(do_p, dev))
+    if any(do_p):
         pose = None
         if cfg.use_gps_prior and not cfg.mapping_publish_refine:
             # the firing frame publishes its post-GN graph estimate
-            pose = g2.poses[torch.clamp(g2.n_poses - 1, min=0).reshape(1).long()]
-        outs = _patch_last(outs, g2, aux, cfg, pose)
-    return False, dataclasses.replace(ns, graph=g2), outs
+            pose = _rows_at(g2.poses, torch.clamp(g2.n_poses - 1, min=0).long()[:, None])
+        outs = _patch_last(outs, g2, aux, cfg, do_p, pose)
+    return fb, dataclasses.replace(ns, graph=g2), outs
 
 
-def _loc_periodic(st: SlamState, ns: SlamState, outs, aux, fires, okp, cfg: SlamConfig):
-    """The periodic GN of a committed localization block, in the two
+def _loc_periodic(st: SlamState, ns: SlamState, outs, aux, fires, act, okp, cfg: SlamConfig):
+    """The periodic GN of a committed localization block for the sessions
+    `act` [S], with `fires` [S][B] from the block's one read, in the two
     regimes of `_mapping_periodic`; localization inserts poses only, so a
     mid-block window is anchored at its firing frame's pose count and the
     graph's edge count. The published poses are the localizer's, computed
     before the GN, so only the last frame's packet sees the new map.
-    Returns (fallback, state, outputs)."""
-    B = len(fires)
+    Returns (fallback [S] bools, state, outputs)."""
+    S, B = len(fires), len(fires[0])
+    dev = okp.device
     g2 = ns.graph
     if _midblock_gn(cfg, B):
-        n_pose_series = st.graph.n_poses + torch.cumsum(okp, 0, dtype=_I32)
-        for fj in (f for f in range(B) if fires[f]):
-            g2 = periodic_gn(g2, cfg, end=n_pose_series[fj])
+        fb = [False] * S
+        firing = [[f for f in range(B) if fires[s][f]] if act[s] else [] for s in range(S)]
+        g2 = _midblock_firings(g2, cfg, firing,
+                               st.graph.n_poses[:, None] + torch.cumsum(okp, -1, dtype=_I32))
     else:
-        if any(fires[:-1]):
-            return True, ns, outs
-        if fires[-1]:
-            g2 = periodic_gn(g2, cfg)
-    if fires[-1] and (cfg.periodic_gn_window == 0 or cfg.periodic_gn_window_landmarks):
-        outs = _patch_last(outs, g2, aux, cfg)
-    return False, dataclasses.replace(ns, graph=g2), outs
+        fb = [act[s] and any(fires[s][:-1]) for s in range(S)]
+        do_gn = [act[s] and not fb[s] and fires[s][-1] for s in range(S)]
+        if any(do_gn):
+            g2 = periodic_gn(g2, cfg, enable=_enable(do_gn, dev))
+    do_p = [act[s] and not fb[s] and fires[s][-1] for s in range(S)]
+    if any(do_p) and (cfg.periodic_gn_window == 0 or cfg.periodic_gn_window_landmarks):
+        outs = _patch_last(outs, g2, aux, cfg, do_p)
+    return fb, dataclasses.replace(ns, graph=g2), outs
 
 
 def _compacted(obs_seq, valid_seq, compact_obs: int):
@@ -700,86 +740,19 @@ def _compacted(obs_seq, valid_seq, compact_obs: int):
 def blocked_core(state: SlamState, obs_seq, valid_seq, pose_seq, cfg: SlamConfig,
                  block: int = 8, compact_obs: int = 32, frozen: bool | None = None):
     """Mapping blocks, the closure GN and localization blocks over inputs
-    already padded to a multiple of `block`. `frozen` is whether the map
-    was already frozen (read from the state when None).
+    already padded to a multiple of `block`: `blocked_core_batched` for one
+    session. `frozen` is whether the map was already frozen (read from the
+    state when None).
 
     Returns (state, outputs [done_upto], done_upto): frames from done_upto on
     were not processed (a fallback fired) and must be finished by the
     per-frame path; done_upto equals the padded length on a complete pass.
     """
-    B = block
-    Tp = obs_seq.shape[0]
-    nb = Tp // B
-    if frozen is None:
-        frozen = bool(state.loop_closure_complete)
-    obs_c, valid_c, first_valid, overflow = _compacted(obs_seq, valid_seq, compact_obs)
-    okp_all = _in_bounds(pose_seq, cfg)
-    fidx = torch.arange(B, device=obs_seq.device)
-    periodic = cfg.periodic_gn_every > 0
-
-    parts, done_upto = [], Tp
-    kc_global = -1 if frozen else Tp
-    if not frozen:
-        for ib in range(nb):
-            f = slice(ib * B, (ib + 1) * B)
-            ns, outs, aux = _one_session(_mapping_block, state, obs_c[f], valid_c[f],
-                                         pose_seq[f], okp_all[f], first_valid[f], overflow[f],
-                                         cfg=cfg)
-            fires = _periodic_fires(state.keyframe_count, aux["ins"], aux["n_lm_series"],
-                                    cfg) if periodic else None
-            (fb, closed, kcf), fires = _read_flags(
-                (aux["fallback"], aux["closure_any"], aux["kc_frame"]), fires)
-            if periodic and not fb:
-                fb, ns, outs = _mapping_periodic(ns, outs, aux, fires, bool(closed), kcf,
-                                                 obs_c[f], pose_seq[f], cfg)
-            if fb:
-                done_upto = ib * B
-                break
-            state = ns
-            if not closed:
-                parts.append(outs)
-                continue
-            # the one-shot closure GN on exactly the graph the per-frame
-            # path's closure GN saw, then the closure frame's packet (and,
-            # with the publish refine, its pose) from the optimized map: the
-            # per-frame path computes both after its GN
-            kc_global = ib * B + kcf
-            g = gn.optimize(state.graph, _gn_config(cfg))
-            state = dataclasses.replace(state, graph=g)
-            at = slice(kcf, kcf + 1)
-            pose_kc = pose_seq[kc_global][None]
-            if cfg.mapping_publish_refine:
-                lm_idx, matched = aux["pub_rows"]
-                pose_kc = _publish_refine(pose_kc, g.lm_xy[lm_idx[at]], matched[at],
-                                          _body_xy(obs_c[kc_global], cfg)[None], cfg)
-            az, dist, ctype = _packet(g, aux["n_lm_series"][at], aux["cur_series"][at], pose_kc,
-                                      cfg)
-            parts.append(_rows(outs, 0, kcf))
-            parts.append(dataclasses.replace(_rows(outs, kcf, kcf + 1), pose=pose_kc,
-                                             cone_azimuth=az, cone_distance=dist,
-                                             cone_type=ctype))
-            break
-
-    if kc_global < Tp and done_upto == Tp:
-        for ib in range((kc_global + 1) // B, nb):
-            f = slice(ib * B, (ib + 1) * B)
-            lo = max(kc_global + 1 - ib * B, 0)
-            okp = okp_all[f] & (fidx >= lo)
-            ns, outs, aux = _one_session(_loc_block, state, obs_c[f], valid_c[f], pose_seq[f],
-                                         okp, overflow[f], cfg=cfg)
-            fires = _periodic_fires(state.keyframe_count, okp,
-                                    ns.graph.n_landmarks.expand(B), cfg) if periodic else None
-            (fb,), fires = _read_flags((aux["fallback"],), fires)
-            if periodic and not fb:
-                fb, ns, outs = _loc_periodic(state, ns, outs, aux, fires, okp, cfg)
-            if fb:
-                done_upto = ib * B
-                break
-            state = ns
-            parts.append(_rows(outs, lo, B))
-
-    outs = _rows(_cat(parts), 0, done_upto) if parts else None
-    return state, outs, done_upto
+    states, outs, done = blocked_core_batched(
+        map_state(lambda v: v[None], state), obs_seq[None], valid_seq[None], pose_seq[None],
+        cfg, block, compact_obs, None if frozen is None else [frozen])
+    d = done[0]
+    return session_state(states, 0), (_rows(_take(outs, 0), 0, d) if d else None), d
 
 
 def _hold(held, new: SlamState, old: SlamState) -> SlamState:
@@ -799,17 +772,20 @@ def blocked_core_batched(states: SlamState, obs_seq, valid_seq, pose_seq, cfg: S
 
     The mapping blocks run over all sessions together, one block function
     call for the S sessions, and read the [S] (fallback, closure, closure
-    frame) flags once per block. A session that has closed or fallen back
-    has its frames masked out of later blocks (all frames fail the GPS
-    guard), which makes those blocks exact no-ops for it; a session that
-    falls back in a block keeps its state from before the block. The
+    frame) flags and, with a periodic GN, the [S, B] firing mask once per
+    block. A session that has closed or fallen back has its frames masked
+    out of later blocks (all frames fail the GPS guard), which makes those
+    blocks exact no-ops for it; a session that falls back in a block keeps
+    its state from before the block. The periodic GNs of the sessions that
+    fire in a block run as batched GNs (`_mapping_periodic`). The
     blocks stop when no session is still mapping. Then one batched closure
     GN at full capacity (`gauss_newton.optimize` on the stacked graph,
     enabled for the sessions that closed; one Cholesky of all their
     systems per iteration) and each closed session's closure-frame packet
-    from its optimized map. The localization blocks start at the earliest
-    closed session's block and take, for each session, its frames after
-    its closure frame; a session that never closed takes none.
+    (and, with the publish refine, its pose) from its optimized map. The
+    localization blocks start at the earliest closed session's block and
+    take, for each session, its frames after its closure frame; a session
+    that never closed takes none.
 
     Returns (states, outputs [S, Tp], done_upto): done_upto[s] (a list of
     ints) is the first frame of session s the blocks did not process (a
@@ -823,12 +799,13 @@ def blocked_core_batched(states: SlamState, obs_seq, valid_seq, pose_seq, cfg: S
         frozen = [bool(x) for x in states.loop_closure_complete.tolist()]
     obs_c, valid_c, first_valid, overflow = _compacted(obs_seq, valid_seq, compact_obs)
     okp_all = _in_bounds(pose_seq, cfg)
+    periodic = cfg.periodic_gn_every > 0
 
     done_upto = [Tp] * S
     kc_global = [-1 if fz else Tp for fz in frozen]
     mapping = [not fz for fz in frozen]
     map_parts = []
-    n_lm_kc = cur_kc = None
+    kc_rows = None      # per session: (n_landmarks, currentConeIndex, publish rows) at its closure
     for ib in range(nb):
         if not any(mapping):
             break
@@ -837,21 +814,32 @@ def blocked_core_batched(states: SlamState, obs_seq, valid_seq, pose_seq, cfg: S
         ns, outs, aux = _mapping_block(states, obs_c[:, f], valid_c[:, f], pose_seq[:, f],
                                        okp_all[:, f] & live[:, None], first_valid[:, f],
                                        overflow[:, f], cfg)
-        fb, closed, kcf = torch.stack([aux["fallback"].to(_I32), aux["closure_any"].to(_I32),
-                                       aux["kc_frame"]]).tolist()
+        fires = _periodic_fires(states.keyframe_count, aux["ins"], aux["n_lm_series"],
+                                cfg) if periodic else None
+        (fb, closed, kcf), fires = _read_flags(
+            (aux["fallback"], aux["closure_any"], aux["kc_frame"]), fires)
         fell = [mapping[s] and bool(fb[s]) for s in range(S)]
+        if periodic:
+            pfb, ns, outs = _mapping_periodic(
+                ns, outs, aux, fires, [mapping[s] and not fell[s] for s in range(S)], closed,
+                kcf, obs_c[:, f], pose_seq[:, f], cfg)
+            fell = [fell[s] or pfb[s] for s in range(S)]
         states = _hold(fell, ns, states)
         map_parts.append(outs)
         closing = [mapping[s] and not fell[s] and bool(closed[s]) for s in range(S)]
         if any(closing):
-            # each closing session's (n_landmarks, currentConeIndex) after its
-            # closure frame, for its packet from the optimized map
+            # each closing session's (n_landmarks, currentConeIndex) and
+            # publish rows after its closure frame, for its packet and pose
+            # from the optimized map
             at = torch.clamp(aux["kc_frame"], max=B - 1).long()[:, None]
+            rows = [torch.gather(aux["n_lm_series"], 1, at)[:, 0],
+                    torch.gather(aux["cur_series"], 1, at)[:, 0]]
+            if cfg.mapping_publish_refine:
+                rows += [_rows_at(x, at)[:, 0] for x in aux["pub_rows"]]
             sel = torch.tensor(closing, device=dev)
-            n_lm = torch.gather(aux["n_lm_series"], 1, at)[:, 0]
-            cur = torch.gather(aux["cur_series"], 1, at)[:, 0]
-            n_lm_kc = n_lm if n_lm_kc is None else torch.where(sel, n_lm, n_lm_kc)
-            cur_kc = cur if cur_kc is None else torch.where(sel, cur, cur_kc)
+            kc_rows = rows if kc_rows is None else [
+                torch.where(sel.reshape(-1, *([1] * (a.dim() - 1))), a, b)
+                for a, b in zip(rows, kc_rows)]
         for s in range(S):
             if fell[s]:
                 done_upto[s] = ib * B
@@ -863,15 +851,24 @@ def blocked_core_batched(states: SlamState, obs_seq, valid_seq, pose_seq, cfg: S
     closed_now = [not frozen[s] and kc_global[s] < Tp and done_upto[s] == Tp for s in range(S)]
     if any(closed_now):
         # the one-shot closure GN of every closed session, at full capacity
-        # as the JAX package's batched GN (vmap_safe_gn), then each closure
-        # frame's packet from its optimized map
-        gcfg = dataclasses.replace(_gn_config(cfg), solve_bucket_step=0, edge_bucket_step=0)
-        g = gn.optimize(states.graph, gcfg, enable=torch.tensor(closed_now, device=dev))
+        # as the JAX package's batched GN (vmap_safe_gn; a single session
+        # on its buckets, as its unbatched one), then each closure frame's
+        # packet (and, with the publish refine, its pose) from its
+        # optimized map; the per-frame path computes both after its GN
+        gcfg = _gn_config(cfg)
+        if S > 1:
+            gcfg = dataclasses.replace(gcfg, solve_bucket_step=0, edge_bucket_step=0)
+        g = gn.optimize(states.graph, gcfg, enable=_enable(closed_now, dev))
         states = dataclasses.replace(states, graph=g)
-        kc_t = torch.tensor([min(max(k, 0), Tp - 1) for k in kc_global], device=dev)
-        pose_kc = _rows_at(pose_seq, kc_t[:, None])
-        kc_packet = _packet_series(g.lm_xy, g.lm_type, n_lm_kc[:, None], cur_kc[:, None],
-                                   pose_kc, cfg)
+        kc_t = torch.tensor([min(max(k, 0), Tp - 1) for k in kc_global], device=dev)[:, None]
+        pose_kc = _rows_at(pose_seq, kc_t)
+        if cfg.mapping_publish_refine:
+            lm_idx, matched = kc_rows[2:]
+            pose_kc = _publish_refine(pose_kc, _rows_at(g.lm_xy, lm_idx)[:, None],
+                                      matched[:, None], _body_xy(_rows_at(obs_c, kc_t), cfg),
+                                      cfg)
+        kc_packet = _packet_series(g.lm_xy, g.lm_type, kc_rows[0][:, None],
+                                   kc_rows[1][:, None], pose_kc, cfg)
 
     # localization: every session whose map is frozen and that has not
     # fallen back, each from the frame after its closure
@@ -888,8 +885,16 @@ def blocked_core_batched(states: SlamState, obs_seq, valid_seq, pose_seq, cfg: S
         okp = okp_all[:, f] & (ib * B + fidx > kc_dev[:, None]) & active[:, None]
         ns, outs, aux = _loc_block(states, obs_c[:, f], valid_c[:, f], pose_seq[:, f], okp,
                                    overflow[:, f], cfg)
-        fb = aux["fallback"].tolist()
+        fires = _periodic_fires(states.keyframe_count, okp,
+                                ns.graph.n_landmarks[:, None].expand(S, B),
+                                cfg) if periodic else None
+        (fb,), fires = _read_flags((aux["fallback"],), fires)
         fell = [loc[s] and bool(fb[s]) for s in range(S)]
+        if periodic:
+            pfb, ns, outs = _loc_periodic(
+                states, ns, outs, aux, fires, [loc[s] and not fell[s] for s in range(S)], okp,
+                cfg)
+            fell = [fell[s] or pfb[s] for s in range(S)]
         states = _hold(fell, ns, states)
         for s in range(S):
             if fell[s]:
@@ -917,7 +922,8 @@ def blocked_core_batched(states: SlamState, obs_seq, valid_seq, pose_seq, cfg: S
         sel = at_kc[..., None]
         az, dist, ctype = kc_packet
         outs = dataclasses.replace(
-            outs, cone_azimuth=torch.where(sel, az, outs.cone_azimuth),
+            outs, pose=torch.where(sel, pose_kc, outs.pose),
+            cone_azimuth=torch.where(sel, az, outs.cone_azimuth),
             cone_distance=torch.where(sel, dist, outs.cone_distance),
             cone_type=torch.where(sel, ctype, outs.cone_type))
     return states, outs, done_upto
@@ -989,21 +995,6 @@ def run_pass_blocked(obs_seq, valid_seq, pose_seq, cfg: SlamConfig, block: int =
                                 valid_seq, pose_seq, cfg, block, assoc_mesh=assoc_mesh)
 
 
-# configuration fields the batched sessions do not run yet, each refused by
-# name (they are the improved mode's, which the JAX package's fusion section
-# batches)
-_NOT_BATCHED = ("periodic_gn_every", "use_gps_prior", "localizer_refine",
-                "mapping_publish_refine", "association")
-
-
-def _check_batched(cfg: SlamConfig) -> None:
-    for name in _NOT_BATCHED:
-        value = getattr(cfg, name)
-        if (value == "mahalanobis") if name == "association" else value:
-            raise NotImplementedError(
-                f"{name}={value!r} is not ported to tpuslam_torch's batched sessions yet")
-
-
 def run_sequences_blocked_batched(states: SlamState, obs_seq, valid_seq, pose_seq,
                                   cfg: SlamConfig, block: int = 8):
     """S independent sessions through the blocked pipeline at once: a
@@ -1012,15 +1003,14 @@ def run_sequences_blocked_batched(states: SlamState, obs_seq, valid_seq, pose_se
     states, outputs [S, T]), each session's equal to its own
     `run_sequence_blocked` but for the closure GN, which runs at full
     capacity for all sessions at once (its sums in another order). A
-    session the blocks could not finish is finished by the per-frame path.
-    Raises `ValueError` where `run_sequence_blocked` does, and
-    `NotImplementedError`, naming the field, for the improved mode's
-    fields (periodic GN, GPS priors, the refines, Mahalanobis)."""
+    session the blocks could not finish is finished by the per-frame path
+    (the improved mode's per-frame engine too). Raises `ValueError` where
+    `run_sequence_blocked` does, and `NotImplementedError`, naming the
+    field, for the EKF fusion and `assoc_mesh`, which are not ported yet."""
     if not blocked_supported(cfg, block):
         raise ValueError("run_sequences_blocked_batched: unsupported config, see "
                          "run_sequence_blocked")
     _check_supported(cfg, None)
-    _check_batched(cfg)
     S, T = obs_seq.shape[:2]
     if T == 0 or cfg.capacity.max_obs < block * min(obs_seq.shape[2], 32) + 1:
         # an edge capacity below one block's rows: the per-frame path is the

@@ -552,16 +552,18 @@ def _periodic_gn_config(cfg: SlamConfig) -> gn.GNConfig:
     return dataclasses.replace(_gn_config(cfg), iterations=cfg.periodic_gn_iterations)
 
 
-def periodic_gn(g, cfg: SlamConfig, end=None, end_obs=None):
+def periodic_gn(g, cfg: SlamConfig, end=None, end_obs=None, enable=None):
     """One firing of the periodic re-optimization: fixed-lag over the last
     `periodic_gn_window` poses (anchored at `end` / `end_obs` when given),
-    or full-batch when the window is 0."""
+    or full-batch when the window is 0. On a stacked graph [S], `enable`
+    [S] says which sessions fire (the others come back bit for bit), and
+    `end` / `end_obs` are [S]."""
     pcfg = _periodic_gn_config(cfg)
     if cfg.periodic_gn_window > 0:
         return gn.optimize_window(g, pcfg, cfg.periodic_gn_window, cfg.periodic_gn_edge_window,
-                                  landmarks=cfg.periodic_gn_window_landmarks, end=end,
-                                  end_obs=end_obs)
-    return gn.optimize(g, pcfg)
+                                  enable=enable, landmarks=cfg.periodic_gn_window_landmarks,
+                                  end=end, end_obs=end_obs)
+    return gn.optimize(g, pcfg, enable=enable)
 
 
 def _prior_info(cfg: SlamConfig):
