@@ -49,6 +49,21 @@ Phases, in order; the first that fails ends the run with exit code 1:
                session of the batched pass to its own single-session blocked
                run; with the kernel, one launch per block for all sessions at
                8 x 512 x 256 and, drifted, at 8 x 256 x 256;
+  service  — the live service: the bench lap written as a .rec and replayed
+               through `SlamService.run_replay` in both configurations
+               (SERVICE_CONFIGS, every frame a keyframe), each held to
+               SERVICE_REFERENCE and to the direct `Slam.run_scenario` on
+               the card (every keyframe's outputs and published message),
+               with the kernel one association launch per keyframe at
+               64 x 256; the CTRV EKF (BASELINE config 2 and the skidpad lap
+               through `Slam(use_ekf_fusion=True)`, held to EKF_REFERENCE);
+               a checkpoint resume with an open frame and the EKF, held to
+               the uninterrupted run;
+  lidar    — bench.py's two vlp16_frontend scenes through `detect_cones`
+               with the JAX package's triples, held to VLP16_REFERENCE, and
+               with the port's own, held to its CPU run; the full-sweep
+               replay through the service, held to
+               tests/test_perception.py's bounds;
   5. closure solve — `gauss_newton.optimize` on the graph the closure GN
                solves, through the Cholesky kernel and through
                `torch.linalg.cholesky_ex`, and the kernel's factor of the
@@ -64,7 +79,9 @@ Phases, in order; the first that fails ends the run with exit code 1:
                beside the 16 single-session laps run one after another, and
                both kernels at the batched shapes; the fusion section's
                batched improved pass, its fusions and joint GN alone, and the
-               association kernel at the fusion shapes.
+               association kernel at the fusion shapes; the service replay's
+               ms per keyframe, launches and reads, one EKF message, and
+               `detect_cones` at both scenes in sweeps/s beside 10 Hz.
 It prints a `{"kernels": [...]}` line, the card's name and power limit as
 nvidia-smi gives them, and last `{"ok": true, "device": {...}}`. Without a
 CUDA device it fails before any phase. It imports no JAX.
@@ -74,9 +91,11 @@ from __future__ import annotations
 import dataclasses
 import functools
 import json
+import os
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 import traceback
 
@@ -98,9 +117,21 @@ from tpuslam_torch.parallel.batch import initial_states
 from tpuslam_torch.parallel.fusion import fuse_sessions, fusion_report
 from tpuslam_torch.ops import assoc_kernel as A
 from tpuslam_torch.ops import cholesky as C
-from tpuslam_torch.runtime.config import SlamConfig
+from tpuslam_torch.core.slam import Slam, _geo_from_local
+from tpuslam_torch.frontend import motion
+from tpuslam_torch.geometry import wgs84
 from tpuslam_torch.geometry.spherical import cone_to_global
-from tpuslam_torch.sim import SimConfig, ate, simulate, trackdrive
+from tpuslam_torch.io import messages as M
+from tpuslam_torch.io.rec import RecWriter
+from tpuslam_torch.perception.attention import AttentionConfig, detect_cones
+from tpuslam_torch.perception.vlp16 import decode_point_cloud_reading
+from tpuslam_torch.runtime.checkpoint import load_checkpoint, save_checkpoint
+from tpuslam_torch.runtime.config import SlamConfig
+from tpuslam_torch.runtime.service import SlamService, scenario_to_rec
+from tpuslam_torch.sim import SimConfig, acceleration, ate, simulate, skidpad, trackdrive
+from tpuslam_torch.sim.vlp16_sim import (
+    Vlp16SceneConfig, render_scene, scene_to_point_cloud_reading,
+)
 
 # The bench scenario (bench.py:34-38) and capacity (bench.py:152-153).
 SIM = dict(laps=1.4, keyframe_dt=0.1, speed=8.0, max_range=20.0, seed=12)
@@ -235,6 +266,57 @@ ASSOC_FUSION = {"fusion": (8, 512, 256), "fusion_drifted": (8, 256, 256)}
 # (S, n) at which the batched Cholesky kernel is held to its twin and to
 # single launches: the path's [16, 1152, 1152] among them
 CHOL_BATCHED_CHECKS = [(s, n) for s in (1, 3, 16) for n in (1, 33, 768, 1152)]
+# The live service (`runtime/service.py`): the bench lap written as a .rec by
+# `scenario_to_rec` and replayed through `SlamService.run_replay`, with the
+# keyframe gate below the lap's 100 ms frame spacing, so every frame is a
+# keyframe; compat 'first' and 'nearest' through the association kernel
+SERVICE_KEYFRAME_MS = 50.0
+SERVICE_CONFIGS = {"first": {}, "nearest": dict(association="nearest",
+                                                use_pallas_association=True)}
+# The JAX package's `SlamService` replay of that .rec on the CPU, the same in
+# both configurations; tests/test_torch_service_reference.py recomputes it
+SERVICE_REFERENCE = dict(keyframes=326, closure_frame=212, n_landmarks=112, n_obs=1974,
+                         sends=113, ate_published=0.210073)
+# BASELINE config 2, the acceleration straight with the CTRV EKF at 20 Hz
+# (tests/test_motion.py:57-77), and the skidpad lap through
+# `Slam(use_ekf_fusion=True)` (tests/test_motion.py:80-96); the JAX
+# package's numbers on the CPU, recomputed by
+# tests/test_torch_service_reference.py
+EKF_ACCEL_SIM = dict(laps=0.95, keyframe_dt=0.05, speed=10.0, gps_noise=0.25, seed=44)
+EKF_SKIDPAD_SIM = dict(laps=1.3, seed=51, keyframe_dt=0.1)
+EKF_SKIDPAD_CAP = GraphCapacity(128, 64, 2048)
+EKF_REFERENCE = dict(accel_ate_gps=0.367423, accel_ate_ekf=0.070597,
+                     skidpad=dict(closure_frame=65, n_landmarks=41, n_obs=465, sends=27,
+                                  ate_published=0.114627, map_err_median=0.255198))
+# The checkpoint resume (tests/test_runtime.py:163-204): the skidpad lap with
+# the EKF, saved at half the lap with an open cone frame
+RESUME_SIM = dict(laps=1.2, seed=7)
+# bench.py's vlp16_frontend section (bench.py:982-1042): the 24-cone dense
+# scene (seed 3, 4,096-point buffer, dense clustering) and the full
+# 28,800-return sweep with the surround wall (seed 4, 32,768-point buffer,
+# grid clustering). The JAX package's detections with its seed-0 RANSAC
+# triples, on the CPU; tests/test_torch_service_reference.py recomputes them
+VLP16_REFERENCE = {
+    "dense": dict(points=2940, triples=[
+        [869, 336, 4040], [2621, 3, 4051], [1168, 543, 1653], [1083, 1380, 2826],
+        [600, 2883, 2779], [3683, 406, 146], [4074, 125, 2043], [1592, 2492, 1939],
+        [2917, 381, 2932], [1033, 728, 3140]], cones=[
+        [15.330334, 1.346462, 7.530363, 0.0], [25.462856, 1.093179, 8.806123, 0.0],
+        [12.305235, 1.082450, 9.637036, 0.0]]),
+    "full_sweep": dict(points=28800, triples=[
+        [869, 8528, 24520], [27197, 3, 12243], [17552, 4639, 26229], [5179, 9572, 27402],
+        [4696, 2883, 27355], [24163, 24982, 16530], [16362, 125, 14331], [26168, 2492, 1939],
+        [15205, 8573, 2932], [5129, 728, 15428]], cones=[
+        [31.700138, 3.715864, 3.299183, 0.0], [-23.200703, 1.216018, 6.289563, 0.0],
+        [-5.999669, 1.786443, 6.630686, 0.0], [-16.600180, 1.964437, 7.411248, 0.0],
+        [24.899565, 1.646880, 7.765529, 0.0], [-10.299736, 1.386880, 8.081858, 0.0],
+        [3.199887, 1.074459, 8.497897, 0.0], [-4.399520, 0.437576, 9.494285, 0.0]]),
+}
+VLP16_ATOL = 1e-3           # cone tuples: metres in the range column, degrees in the angle columns
+VLP16_RATE_HZ = 10.0        # the sensor's revolutions per second
+# the full-sweep replay (tests/test_perception.py:325-373): four sweeps and
+# GPS fixes 2 m apart through the service, the cones 1.5 m from the lidar
+SWEEP_REPLAY_CONES = [[8.0, 1.5], [11.0, -1.5], [14.0, 1.5], [17.0, -1.5], [20.0, 1.5]]
 
 
 def configs():
@@ -294,13 +376,14 @@ def gate_margin(scen, cfg, frame) -> float:
     return float(((cost - gate).abs() / gate)[ok].min()) if bool(ok.any()) else float("inf")
 
 
-def check_metrics(name: str, got: dict) -> None:
-    want = REFERENCE[name]
-    for k, v in want.items():
+def check_metrics(name: str, got: dict, want=None, atol=METRIC_ATOL_M) -> None:
+    """`got` against `want` (REFERENCE[name] by default): integers exact,
+    floats within `atol`."""
+    for k, v in (REFERENCE[name] if want is None else want).items():
         if isinstance(v, int):
             ok = got[k] == v
         else:
-            ok = abs(got[k] - v) <= METRIC_ATOL_M
+            ok = abs(got[k] - v) <= atol
         if not ok:
             raise AssertionError(f"{name}: {k} = {got[k]}, JAX package {v}")
 
@@ -690,12 +773,263 @@ def compare_runs(what, got, want, closure):
                 raise AssertionError(f"{what}: state.{path}{f.name} differs")
 
 
-def profile_counts(fn):
+class Recorder:
+    """Wraps a `Slam`'s `process_frame` to keep every keyframe's outputs
+    (and, with `sync`, the host time of each call up to a device
+    synchronize) and takes its published messages."""
+
+    def __init__(self, slam, sync=False):
+        self.outs, self.published, self.seconds = [], [], []
+        inner = slam.process_frame
+
+        def process_frame(*a, **kw):
+            t0 = time.perf_counter()
+            out = inner(*a, **kw)
+            if sync:
+                torch.cuda.synchronize()
+                self.seconds.append(time.perf_counter() - t0)
+            self.outs.append(out)
+            return out
+
+        slam.process_frame = process_frame
+        slam.publish = lambda *msg: self.published.append(msg)
+
+    def stacked(self):
+        """The outputs of every keyframe, stacked per field."""
+        return {f.name: torch.stack([getattr(o, f.name) for o in self.outs]).cpu()
+                for f in dataclasses.fields(self.outs[0])}
+
+
+def service_config(name, **kw):
+    return SlamConfig(capacity=CAP, time_between_keyframes_ms=SERVICE_KEYFRAME_MS,
+                      **SERVICE_CONFIGS[name], **kw)
+
+
+def service_replay(cfg, scen, device, sync=False):
+    """The lap through `scenario_to_rec` and `SlamService.run_replay` on
+    `device`: (service, Recorder)."""
+    with tempfile.TemporaryDirectory() as tmp:
+        rec = os.path.join(tmp, "lap.rec")
+        scenario_to_rec(scen, rec, cfg)
+        svc = SlamService(cfg, device=device)
+        recorder = Recorder(svc.slam, sync)
+        svc.run_replay(rec)
+    return svc, recorder
+
+
+def service_metrics(scen, slam, outs) -> dict:
+    """The discrete outcome of a service run and its published ATE."""
+    closes = np.flatnonzero(outs["loop_closed"].numpy())
+    poses = outs["pose"].numpy()
+    g = slam.state.graph
+    return dict(keyframes=slam.keyframes_processed,
+                closure_frame=int(closes[0]) if len(closes) else -1,
+                n_landmarks=int(g.n_landmarks), n_obs=int(g.n_obs),
+                sends=int(outs["send"].sum()),
+                ate_published=ate(poses[:, :2], scen.gt_poses[:len(poses), :2]))
+
+
+def compare_published(what, got, want, gps_ref):
+    """Two runs' published message streams: the same messages in the same
+    order, object ids, types and sender stamps exact; the published pose
+    (its WGS84 fix projected back to metres) and the cone rows within
+    POSE_ATOL, azimuths, in degrees, within 60 x POSE_ATOL. Sample stamps
+    are not compared: a replay publishes a frame when the next frame's
+    first cone closes it, after that frame's GPS fix."""
+    if len(got) != len(want):
+        raise AssertionError(f"{what}: {len(got)} published messages, want {len(want)}")
+    for (mg, _, sg), (mw, _, sw) in zip(got, want):
+        if type(mg) is not type(mw) or sg != sw or getattr(mg, "objectId", 0) != \
+                getattr(mw, "objectId", 0):
+            raise AssertionError(f"{what}: published {mg} ({sg}), want {mw} ({sw})")
+        if isinstance(mg, M.Geolocation):
+            xy = [wgs84.to_cartesian(gps_ref, np.array([m.latitude, m.longitude]))
+                  for m in (mg, mw)]
+            vals = [(*xy[0], mg.heading), (*xy[1], mw.heading)]
+            atol = POSE_ATOL
+        elif isinstance(mg, M.ObjectDirection):
+            vals, atol = [(mg.azimuthAngle,), (mw.azimuthAngle,)], 60 * POSE_ATOL
+        elif isinstance(mg, M.ObjectDistance):
+            vals, atol = [(mg.distance,), (mw.distance,)], POSE_ATOL
+        else:
+            vals, atol = [(mg.type,), (mw.type,)], 0
+        if np.max(np.abs(np.subtract(*vals))) > atol:
+            raise AssertionError(f"{what}: published {mg}, want {mw}")
+
+
+def compare_outputs(what, got, want, atol=POSE_ATOL):
+    """Two stacked per-keyframe outputs: discrete fields exact, values
+    within `atol` (azimuths, in degrees, within 60 x `atol`)."""
+    for k, b in want.items():
+        a = got[k]
+        if not a.is_floating_point():
+            if not torch.equal(a, b):
+                raise AssertionError(f"{what}: outputs.{k} differs")
+        else:
+            torch.testing.assert_close(a, b, rtol=0, msg=f"{what}: {k}",
+                                       atol=atol * (60.0 if k == "cone_azimuth" else 1.0))
+
+
+def ekf_accel(device):
+    """BASELINE config 2 through the port's EKF on `device`: (ATE of the GPS
+    fixes, ATE of the fused poses after 20 frames, fused poses [T, 3])."""
+    scen = simulate(acceleration(), SimConfig(**EKF_ACCEL_SIM))
+    f32 = functools.partial(torch.tensor, dtype=torch.float32, device=device)
+    ekf = motion.ekf_init(f32(scen.gt_poses[0]), pos_std=1.0)
+    fused = []
+    for k in range(len(scen.times)):
+        ekf = motion.ekf_predict(ekf, 0.05)
+        ekf = motion.ekf_update_position(ekf, f32(scen.odom_poses[k, :2]), std=0.25)
+        ekf = motion.ekf_update_heading(ekf, float(scen.odom_poses[k, 2]), std=0.02)
+        ekf = motion.ekf_update_yaw_rate(ekf, float(scen.yaw_rates[k]), std=0.02)
+        fused.append(ekf.x[:3])
+    fused = torch.stack(fused).cpu().numpy()
+    return (ate(scen.odom_poses[:, :2], scen.gt_poses[:, :2]),
+            ate(fused[20:, :2], scen.gt_poses[20:, :2]), fused)
+
+
+def ekf_skidpad(device):
+    """The skidpad lap through `Slam(use_ekf_fusion=True)` on `device`:
+    (metrics, Recorder)."""
+    track = skidpad()
+    scen = simulate(track, SimConfig(**EKF_SKIDPAD_SIM))
+    slam = Slam(SlamConfig(capacity=EKF_SKIDPAD_CAP, use_ekf_fusion=True), device=device)
+    recorder = Recorder(slam)
+    slam.run_scenario(scen)
+    outs = recorder.stacked()
+    m = service_metrics(scen, slam, outs)
+    lm, _ = slam.draw_cones()
+    m["map_err_median"] = float(np.median(np.linalg.norm(
+        lm[:, None, :] - track.cones_xy[None], axis=-1).min(axis=1)))
+    del m["keyframes"]
+    return m, recorder
+
+
+def feed(slam, scen, t):
+    """Frame `t` of a scenario into a `Slam`, as `run_scenario` feeds it."""
+    us = int(scen.times[t] * 1e6)
+    slam.next_pose(_geo_from_local(slam._gps_ref, scen.odom_poses[t]), us)
+    slam.next_yaw_rate(M.AngularVelocityReading(angularVelocityZ=float(scen.yaw_rates[t])), us)
+    return slam.process_frame(scen.obs[t], scen.obs_valid[t], us)
+
+
+def resume_run(device):
+    """tests/test_runtime.py:163-204 on `device`: the skidpad lap with the
+    EKF, uninterrupted, and stopped at half the lap with an open cone frame,
+    through `save_checkpoint` / `load_checkpoint` and `snapshot_host` /
+    `restore_host` into a fresh `Slam` that finishes it. Returns (k, T,
+    uninterrupted Slam, its Recorder, resumed Slam, its Recorder of frames
+    k..T-1)."""
+    cfg = SlamConfig(use_ekf_fusion=True)
+    scen = simulate(skidpad(), SimConfig(**RESUME_SIM))
+    t, k = len(scen.times), len(scen.times) // 2
+    gold = Slam(cfg, device=device)
+    gold_rec = Recorder(gold)
+    for i in range(t):
+        feed(gold, scen, i)
+    a = Slam(cfg, device=device)
+    for i in range(k):
+        feed(a, scen, i)
+    a.next_cone(M.ObjectDirection(objectId=0, azimuthAngle=5.0), int(scen.times[k] * 1e6))
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "mid.npz")
+        save_checkpoint(path, a.state, cfg, extra={"host": a.snapshot_host()})
+        state, meta = load_checkpoint(path, cfg, device=device)
+    b = Slam(cfg, device=device)
+    b.state = state
+    b.restore_host(meta["host"])
+    if not (b._frame_open and torch.equal(b._ekf.x, a._ekf.x)
+            and torch.equal(b._ekf.p, a._ekf.p)):
+        raise AssertionError("resume: the open frame or the EKF state did not carry over")
+    b._frame_open = False    # drop the partial frame, as the uninterrupted run never had it
+    b_rec = Recorder(b)
+    for i in range(k, t):
+        feed(b, scen, i)
+    return k, t, gold, gold_rec, b, b_rec
+
+
+def vlp16_scenes():
+    """bench.py's two vlp16_frontend scenes: name -> (points [cap, 3] f32,
+    valid [cap], AttentionConfig), made as bench.py:987-1031 makes them."""
+    vcfg = Vlp16SceneConfig(seed=3, points_per_cone=60)
+    rng = np.random.default_rng(3)
+    cone_xy = rng.uniform(-12, 12, (24, 2)).astype(np.float32)
+    pts, _ = render_scene(cone_xy, np.ones(len(cone_xy), np.int32), vcfg)
+    cones_roi = rng.uniform([1.0, -3.5], [11.0, 3.5], (12, 2))
+    cloud, _ = decode_point_cloud_reading(scene_to_point_cloud_reading(
+        cones_roi, Vlp16SceneConfig(seed=4, surround_range=30.0)))
+    out = {}
+    for name, p, cap, acfg in (
+            ("dense", pts, 4096, AttentionConfig(sensor_height=vcfg.sensor_height,
+                                                  ground_layer_z=-vcfg.sensor_height)),
+            ("full_sweep", cloud, 32768, AttentionConfig(
+                sensor_height=0.9, ground_layer_z=-0.9, inlier_found_threshold=1000,
+                min_points=3))):
+        buf = np.zeros((cap, 3), np.float32)
+        n = min(len(p), cap)
+        buf[:n] = p[:n]
+        out[name] = (buf, np.arange(cap) < n, acfg)
+    return out
+
+
+def check_cones(what, got, want, atol=VLP16_ATOL):
+    """detect_cones' (cones, valid, count) against wanted rows [k, 4]: the
+    count exact, the valid rows within `atol`."""
+    cones, ok, n = (x.cpu() for x in got)
+    want = torch.as_tensor(want, dtype=torch.float32).cpu().reshape(-1, 4)
+    if int(n) != len(want) or int(ok.sum()) != len(want):
+        raise AssertionError(f"{what}: {int(n)} cones, want {len(want)}")
+    err = float((cones[ok] - want).abs().max()) if len(want) else 0.0
+    if err > atol:
+        raise AssertionError(f"{what}: cone tuples {err:.3g} from the reference, atol {atol}")
+    return err
+
+
+def sweep_replay_rec(path, cfg):
+    """tests/test_perception.py:325-358's recording: four full sweeps
+    (seed 21, the surround-free raycaster) and GPS fixes 2 m apart."""
+    scfg = Vlp16SceneConfig(seed=21, noise=0.005)
+    cones = np.array(SWEEP_REPLAY_CONES)
+    ref = np.array(cfg.gps_reference)
+    with RecWriter(path) as w:
+        for t in range(4):
+            us = int(t * 0.5e6) + 1000
+            pose = np.array([2.0 * t, 0.0, 0.0])
+            latlon = wgs84.from_cartesian(ref, pose[:2])
+            w.write_message(M.Geolocation(latitude=float(latlon[0]), longitude=float(latlon[1]),
+                                          heading=0.0),
+                            sample_us=us, sender_stamp=cfg.estimation_id)
+            w.write_message(scene_to_point_cloud_reading(cones - (pose[:2] + [1.5, 0.0]), scfg),
+                            sample_us=us, sender_stamp=42)
+    return scfg
+
+
+def sweep_replay(device):
+    """The full-sweep recording through `SlamService(attention_cfg=...,
+    host_prefilter=False, point_capacity=32768)` on `device`: (service,
+    landmarks [n, 2], median distance of a landmark to its cone)."""
+    cfg = SlamConfig(capacity=GraphCapacity(32, 32, 512), time_between_keyframes_ms=50.0)
+    with tempfile.TemporaryDirectory() as tmp:
+        rec = os.path.join(tmp, "sweeps.rec")
+        scfg = sweep_replay_rec(rec, cfg)
+        acfg = AttentionConfig(sensor_height=scfg.sensor_height,
+                               ground_layer_z=-scfg.sensor_height, inlier_found_threshold=1000,
+                               min_points=3, host_prefilter=False, point_capacity=32768)
+        svc = SlamService(cfg, attention_cfg=acfg, lidar_sender_id=42, device=device)
+        svc.run_replay(rec)
+    lm, _ = svc.slam.draw_cones()
+    d = np.linalg.norm(lm[:, None] - np.array(SWEEP_REPLAY_CONES)[None], axis=-1).min(axis=1)
+    return svc, lm, float(np.median(d)) if len(d) else float("inf")
+
+
+def profile_counts(fn, host_ops=True):
     """(device busy ms, kernel launches, device-to-host copies) of one call
     of `fn` under torch.profiler: device time summed over kernels and
-    copies."""
+    copies. Without `host_ops` the profiler records the device activity
+    alone, which costs far less on a run of ~100,000 launches."""
     from torch.profiler import ProfilerActivity, profile
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    activities = [ProfilerActivity.CUDA] + ([ProfilerActivity.CPU] if host_ops else [])
+    with profile(activities=activities) as prof:
         fn()
         torch.cuda.synchronize()
     dev = [e for e in prof.key_averages() if e.device_type.name == "CUDA"]
@@ -1150,6 +1484,118 @@ class Smoke:
             if name == "dense":
                 self.fusion_run = (cfg, run)
 
+    # -- after fusion
+    def service(self):
+        """The live service on the card: the bench lap replayed from a .rec
+        through `SlamService.run_replay` in both SERVICE_CONFIGS, each held
+        to SERVICE_REFERENCE and to the port's direct `Slam.run_scenario` on
+        the card (every keyframe's outputs and every published message);
+        with the kernel, one association launch per keyframe at the lap
+        shape. Then the CTRV EKF (BASELINE config 2 and the skidpad lap
+        through `Slam(use_ekf_fusion=True)`, held to EKF_REFERENCE) and a
+        checkpoint resume."""
+        kernel = keyframe_mod.associate_kernel
+        shapes = []
+
+        def recording_kernel(obs_xy, obs_type, lm_xy, *a, **kw):
+            shapes.append((obs_xy.shape[-2], lm_xy.shape[-2]))
+            return kernel(obs_xy, obs_type, lm_xy, *a, **kw)
+
+        odom = self.scen.odom_poses
+        guarded = int(np.sum((np.abs(odom[:, 0]) <= 200.0) & (np.abs(odom[:, 1]) <= 200.0)))
+        for name in SERVICE_CONFIGS:
+            cfg = service_config(name)
+            shapes.clear()
+            keyframe_mod.associate_kernel = recording_kernel
+            A.launches = C.launches = 0
+            try:
+                svc, rec = service_replay(cfg, self.scen, "cuda")
+                torch.cuda.synchronize()
+            finally:
+                keyframe_mod.associate_kernel = kernel
+            counts = {"assoc": A.launches, "cholesky": C.launches}
+            outs = rec.stacked()
+            metrics = service_metrics(self.scen, svc.slam, outs)
+            self.log(f"service {name}: replay of {len(self.scen.times)} frames, "
+                     + json.dumps(metrics) + f", {len(rec.published)} messages published, "
+                     f"launches {counts}")
+            check_metrics(f"service {name}", metrics, SERVICE_REFERENCE)
+            want = {"assoc": guarded if name == "nearest" else 0, "cholesky": 0}
+            if counts != want or len(shapes) != want["assoc"] \
+                    or set(shapes) - {ASSOC_SHAPES["lap"]}:
+                raise AssertionError(f"service {name}: launches {counts}, shapes {set(shapes)}; "
+                                     f"want {want} at {ASSOC_SHAPES['lap']}")
+            if name == "nearest":
+                self.kernels["assoc"].setdefault("launches_by_path", {})["service"] = \
+                    counts["assoc"]
+                self.log(f"service nearest: {counts['assoc']} assoc launches at N x M = "
+                         f"{ASSOC_SHAPES['lap']}, one per keyframe")
+            direct = Slam(cfg, device="cuda")
+            drec = Recorder(direct)
+            direct.run_scenario(self.scen)
+            compare_outputs(f"service {name}: replay vs direct", outs, drec.stacked())
+            compare_published(f"service {name}: replay vs direct", rec.published,
+                              drec.published, direct._gps_ref)
+            self.log(f"service {name}: equal to SERVICE_REFERENCE and to the direct "
+                     f"Slam.run_scenario on the card (discrete outputs and the published "
+                     f"messages' ids and types exact, values within {POSE_ATOL})")
+        ate_gps, ate_ekf, _ = ekf_accel("cuda")
+        got = dict(accel_ate_gps=ate_gps, accel_ate_ekf=ate_ekf)
+        self.log("service ekf: acceleration straight at 20 Hz, " + json.dumps(got))
+        check_metrics("ekf acceleration", got, {k: EKF_REFERENCE[k] for k in got})
+        got, _ = ekf_skidpad("cuda")
+        self.log("service ekf: skidpad lap through Slam(use_ekf_fusion=True), " + json.dumps(got))
+        check_metrics("ekf skidpad", got, EKF_REFERENCE["skidpad"])
+        self.resume()
+
+    def resume(self):
+        """Checkpoint resume on the card (`resume_run`): the resumed tail and
+        final state held to the uninterrupted run, discrete exact, values
+        within POSE_ATOL (the GN's sums are atomics)."""
+        k, t, gold, gold_rec, b, b_rec = resume_run("cuda")
+        tail = {f: v[k:] for f, v in gold_rec.stacked().items()}
+        compare_outputs("resume", b_rec.stacked(), tail)
+        gb, gg = b.state.graph, gold.state.graph
+        for f in ("n_poses", "n_landmarks", "n_obs", "lm_type", "obs_lm", "obs_pose"):
+            if not torch.equal(getattr(gb, f), getattr(gg, f)):
+                raise AssertionError(f"resume: graph.{f} differs from the uninterrupted run")
+        for f in ("poses", "lm_xy"):
+            torch.testing.assert_close(getattr(gb, f), getattr(gg, f), atol=POSE_ATOL, rtol=0,
+                                       msg=f"resume: graph.{f}")
+        self.log(f"service resume: checkpoint at frame {k} of {t} with an open frame and the "
+                 f"EKF; the resumed tail equals the uninterrupted run (discrete exact, values "
+                 f"within {POSE_ATOL}), closure {bool(gold.loop_closure_complete)}")
+
+    def lidar(self):
+        """The lidar front-end on the card: bench.py's two scenes through
+        `detect_cones` with the JAX package's triples, held to
+        VLP16_REFERENCE, and with the port's own seed-0 triples, held to the
+        port's CPU run; then the full-sweep replay through the service,
+        held to tests/test_perception.py:325's bounds."""
+        for name, (pts, valid, acfg) in vlp16_scenes().items():
+            want = VLP16_REFERENCE[name]
+            if int(valid.sum()) != want["points"]:
+                raise AssertionError(f"lidar {name}: {int(valid.sum())} points, want "
+                                     f"{want['points']}")
+            p, v = torch.tensor(pts, device="cuda"), torch.tensor(valid, device="cuda")
+            idx = torch.tensor(want["triples"], device="cuda")
+            err = check_cones(f"lidar {name} (JAX triples)",
+                              detect_cones(p, v, acfg, ransac_idx=idx), want["cones"])
+            cones, ok, n = detect_cones(torch.tensor(pts), torch.tensor(valid), acfg)
+            err_own = check_cones(f"lidar {name} (own triples) vs the CPU run",
+                                  detect_cones(p, v, acfg), cones[ok])
+            self.log(f"lidar {name}: {int(valid.sum())} of {len(valid)} points, "
+                     f"{len(want['cones'])} cones as VLP16_REFERENCE (tuples within "
+                     f"{err:.3g}, atol {VLP16_ATOL}); with the port's seed-0 triples "
+                     f"{int(n)} cones, within {err_own:.3g} of the CPU run")
+        svc, lm, med = sweep_replay("cuda")
+        clouds = svc.metrics.counters["point_cloud_messages"]
+        self.log(f"lidar sweep replay: {clouds} full sweeps through the service, "
+                 f"{len(lm)} landmarks, median distance to a cone {med:.4f} m")
+        if clouds != 4 or not 3 <= len(lm) <= len(SWEEP_REPLAY_CONES) + 1 or not med < 0.4:
+            raise AssertionError("lidar sweep replay: outside tests/test_perception.py's bounds "
+                                 "(4 sweeps, 3-6 landmarks, median < 0.4 m)")
+
     def batched_closure_solve(self):
         """The closure GN of the 16 closed graphs of phase `batched`, at full
         capacity, through the Cholesky kernel: one launch of [S, n, n] per
@@ -1374,9 +1820,11 @@ class Smoke:
         k["device_ms"] = self.device_ms("cholesky", "persistent_cholesky", run, reps=20)
         k["bound_ms"], k["bound_by"] = bound(n ** 3 / 3, 2 * n * n * s.element_size())
         self.batched_kernel_timing()
+        self.fusion_kernel_timing()
         self.lap_profile(obs, valid, poses, lap_ms)
         self.batched_timing()
         self.fusion_timing()
+        self.service_timing()
         for k in self.kernels.values():
             self.log(f"timing: {k['name']} per wrapper call {k['ms'] * 1e3:.1f} us, device "
                      f"{k['device_ms'] * 1e3:.2f} us per launch, plain twin "
@@ -1385,6 +1833,70 @@ class Smoke:
         self.log(f"timing: cholesky n={n}: kernel {turns[1] * 1e3:.1f} / {turns[2] * 1e3:.1f} us, "
                  f"torch.linalg.cholesky_ex {turns[0] * 1e3:.1f} / {turns[3] * 1e3:.1f} us "
                  f"(in turns: library, kernel, kernel, library) [{self.card}]")
+
+    def service_timing(self):
+        """The live path's rows: the bench-lap replay through the service in
+        both SERVICE_CONFIGS, ms per keyframe (host clock around each
+        `process_frame` up to a synchronize; median and p99) and, from one
+        replay profiled on the device, launches and device-to-host reads per
+        keyframe, beside the direct per-frame laps that `lap_profile` logs;
+        one EKF predict plus the updates of a GPS and of an
+        IMU message; `detect_cones` at bench.py's two scenes (CUDA events,
+        median of 3 runs of 10 sweeps after a warm-up), beside the sensor's
+        10 Hz."""
+        for name in SERVICE_CONFIGS:
+            t0 = time.perf_counter()
+            cfg = service_config(name)
+            svc, rec = service_replay(cfg, self.scen, "cuda", sync=True)
+            ms = np.array(rec.seconds) * 1e3
+            t = len(ms)
+            busy, kernels, reads = profile_counts(
+                functools.partial(service_replay, cfg, self.scen, "cuda"), host_ops=False)
+            self.log(f"timing: service replay {name}: {t} keyframes, median "
+                     f"{np.median(ms):.3f} ms, p99 {np.percentile(ms, 99):.3f} ms, max "
+                     f"{ms.max():.3f} ms per keyframe (process_frame to a synchronize), "
+                     f"{kernels / t:.1f} kernel launches and {reads / t:.2f} device-to-host reads "
+                     f"per keyframe, device busy {busy:.1f} ms; the direct per-frame lap of "
+                     f"this call is the '{name}' row above [{self.card}] "
+                     f"({time.perf_counter() - t0:.1f} s)")
+        ekf = motion.ekf_init(torch.zeros(3, device="cuda"))
+        xy = torch.zeros(2, device="cuda")
+        messages = {
+            "GPS (predict, position, heading)": lambda: motion.ekf_update_heading(
+                motion.ekf_update_position(motion.ekf_predict(ekf, 0.05), xy, std=0.15), 0.0),
+            "IMU (predict, yaw rate)": lambda: motion.ekf_update_yaw_rate(
+                motion.ekf_predict(ekf, 0.05), 0.1),
+        }
+        for what, fn in messages.items():
+            fn()
+            runs = []
+            for _ in range(5):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                for _ in range(200):
+                    fn()
+                torch.cuda.synchronize()
+                runs.append((time.perf_counter() - t0) / 200 * 1e6)
+            busy, kernels, reads = profile_counts(fn)
+            self.log(f"timing: ekf {what}: {statistics.median(runs):.1f} us per message (host "
+                     f"clock, median of 5 x 200, min {min(runs):.1f}), {kernels} kernel "
+                     f"launches, {reads} device-to-host reads, device busy {busy * 1e3:.1f} us "
+                     f"[{self.card}]")
+        for name, (pts, valid, acfg) in vlp16_scenes().items():
+            p, v = torch.tensor(pts, device="cuda"), torch.tensor(valid, device="cuda")
+            fn = functools.partial(detect_cones, p, v, acfg)
+            torch.cuda.reset_peak_memory_stats()
+            fn()
+            peak = torch.cuda.max_memory_allocated() / 2**20
+            ms = statistics.median(cuda_ms(fn, reps=10, warmup=False) for _ in range(3))
+            busy, kernels, reads = profile_counts(fn)
+            provider = "grid" if len(valid) > acfg.dense_max_points else "dense"
+            self.log(f"timing: detect_cones {name} ({int(valid.sum())} of {len(valid)} points, "
+                     f"{acfg.clustering} -> {provider}): {ms:.3f} ms per sweep = {1e3 / ms:.1f} sweeps/s "
+                     f"({1e3 / ms / VLP16_RATE_HZ:.1f}x the sensor's {VLP16_RATE_HZ:g} Hz), device "
+                     f"busy {busy:.3f} ms ({100 * busy / ms:.1f}%), {kernels} kernel launches and "
+                     f"{reads} device-to-host reads per sweep, peak memory {peak:.0f} MiB "
+                     f"[{self.card}]")
 
     def batched_timing(self):
         """Batched compat passes at BATCHED_SWEEP sessions (CUDA events, median
@@ -1446,9 +1958,7 @@ class Smoke:
         device-busy share, launches and device-to-host reads); one `fuse_sessions(align=False)`
         of phase `fusion`'s dense sessions alone, its joint GN alone and one
         `torch.linalg.cholesky_ex` of the GN's reduced system; one drifted
-        `fuse_sessions(align=True, robust=True)` alone; and the association
-        kernel's Mahalanobis form at ASSOC_FUSION's shapes beside its twin,
-        with its bound, into the `kernels` line's "fusion"."""
+        `fuse_sessions(align=True, robust=True)` alone."""
         obs_n, valid_n, poses_n, t = fusion_scenario(self.track)
         ins = [torch.tensor(x, device="cuda") for x in (obs_n, valid_n, poses_n)]
         cap = fusion_cap(t)
@@ -1507,6 +2017,12 @@ class Smoke:
         b_ms, b_by = bound(n ** 3 / 3, 2 * a.numel() * a.element_size())
         self.log(f"timing: torch.linalg.cholesky_ex of the joint GN's reduced system, n={n}: "
                  f"{ms:.3f} ms per call (bound {b_ms:.3f} ms, {b_by}) [{self.card}]")
+    def fusion_kernel_timing(self):
+        """The association kernel's Mahalanobis form at ASSOC_FUSION's shapes
+        beside its twin, with its bound, into the `kernels` line's "fusion";
+        before the long profiled passes of `lap_profile`, `batched_timing` and
+        `fusion_timing`: after them, in one run, the profiler delivered 20 of
+        a window's 50 kernel events, three windows in a row."""
         k = self.kernels["assoc"]
         k["fusion"] = {}
         for path, (s_, n, m) in ASSOC_FUSION.items():
@@ -1761,8 +2277,8 @@ def main() -> int:
         return 1
     smoke = Smoke()
     phases = (smoke.build, smoke.kernels_vs_plain, smoke.compat, smoke.kernel_association,
-              smoke.blocked, smoke.improved, smoke.batched, smoke.fusion, smoke.closure_solve,
-              smoke.timing)
+              smoke.blocked, smoke.improved, smoke.batched, smoke.fusion, smoke.service,
+              smoke.lidar, smoke.closure_solve, smoke.timing)
     if sys.argv[1:] == ["--assoc-plans"]:
         phases = (smoke.build, smoke.assoc_plans, smoke.assoc_host)
     elif sys.argv[1:]:

@@ -186,7 +186,8 @@ def test_batched_refuses_improved_mode_fields(field, value):
     they were ported, now run: with each alone, every session of a short
     batched pass (96 frames, block 8) equals its own blocked run
     (tests/test_torch_batched_improved.py covers whole improved laps). The
-    refusal left is `run_sequence_blocked`'s: the EKF fusion, by name."""
+    EKF fusion flag, once refused by name, is accepted and changes nothing
+    here: only the service's `Slam` reads it, as in the JAX package."""
     (obs, valid, poses), cap = _sessions()
     stack = tuple(x[:, :96] for x in (obs, valid, poses))
     cfg = dataclasses.replace(SlamConfig(capacity=GraphCapacity(*cap)), **{field: value})
@@ -197,9 +198,12 @@ def test_batched_refuses_improved_mode_fields(field, value):
                                               *(x[s] for x in _tensors(stack)), cfg, block=8)
         _assert_session(_session_np((st, outs), s), (_np_tree(single[0]), _np_tree(single[1])),
                         f"{field} session {s}")
-    with pytest.raises(NotImplementedError, match="use_ekf_fusion"):
-        run_sequences_blocked_batched(initial_states(cfg.capacity, 3, "cpu"), *_tensors(stack),
-                                      dataclasses.replace(cfg, use_ekf_fusion=True), block=8)
+    st_e, outs_e = run_sequences_blocked_batched(
+        initial_states(cfg.capacity, 3, "cpu"), *_tensors(stack),
+        dataclasses.replace(cfg, use_ekf_fusion=True), block=8)
+    for s in range(len(SEEDS)):
+        _assert_session(_session_np((st_e, outs_e), s), _session_np((st, outs), s),
+                        f"{field} with use_ekf_fusion, session {s}")
 
 
 def test_batched_refuses_first_with_kernel():

@@ -210,8 +210,6 @@ def test_blocked_rejects_unsupported_config():
         ValueError: [dict(periodic_gn_every=5, periodic_gn_window=64),
                      dict(periodic_gn_every=4, periodic_gn_window=0),
                      dict(use_pallas_association=True), dict(vectorized_mapping=False)],
-        # the one configuration field the port does not run yet, by name
-        NotImplementedError: [dict(use_ekf_fusion=True)],
     }
     for err, cases in refused.items():
         for kw in cases:

@@ -418,3 +418,61 @@ def test_fusion_on_cuda_matches_cpu(cuda):
         for f in ("poses", "lm_xy", "odo_w", "prior_pose"):
             np.testing.assert_allclose(getattr(fg, f).cpu().numpy(), getattr(fc, f).numpy(),
                                        atol=1e-3, err_msg=f)
+
+
+@pytest.mark.parametrize("name", list(chip_smoke.VLP16_REFERENCE))
+def test_detect_cones_on_cuda_matches_cpu(cuda, name):
+    """bench.py's lidar scenes through `detect_cones` on the card against the
+    port's CPU run: with the same (the port's seed-0) triples the cone count,
+    validity and labels exact, the tuples within 1e-4 (the cluster sums are
+    atomics); with the JAX package's triples, VLP16_REFERENCE."""
+    from tpuslam_torch.perception.attention import (
+        _connected_components, _connected_components_grid, detect_cones)
+    pts, valid, acfg = chip_smoke.vlp16_scenes()[name]
+    p_c, v_c = torch.tensor(pts), torch.tensor(valid)
+    p_g, v_g = p_c.to(cuda), v_c.to(cuda)
+    (cg, okg, ng), (cc, okc, nc) = detect_cones(p_g, v_g, acfg), detect_cones(p_c, v_c, acfg)
+    assert int(ng) == int(nc) and torch.equal(okg.cpu(), okc)
+    np.testing.assert_allclose(cg.cpu().numpy(), cc.numpy(), atol=1e-4, rtol=0)
+    obstacle = v_c & (p_c[:, 2] > -0.85) & (p_c[:, 2] < -0.1)
+    cc_fn = _connected_components_grid if len(pts) > acfg.dense_max_points \
+        else _connected_components
+    assert torch.equal(cc_fn(p_g[:, :2], obstacle.to(cuda), acfg).cpu(),
+                       cc_fn(p_c[:, :2], obstacle, acfg))
+    want = chip_smoke.VLP16_REFERENCE[name]
+    chip_smoke.check_cones(name, detect_cones(p_g, v_g, acfg, ransac_idx=torch.tensor(
+        want["triples"], device=cuda)), want["cones"])
+
+
+def test_ekf_on_cuda_matches_cpu(cuda):
+    """BASELINE config 2 through the port's EKF on the card and on the CPU:
+    fused poses within 1e-5, the ATEs of EKF_REFERENCE."""
+    gps_g, ekf_g, fused_g = chip_smoke.ekf_accel(cuda)
+    gps_c, ekf_c, fused_c = chip_smoke.ekf_accel("cpu")
+    np.testing.assert_allclose(fused_g, fused_c, atol=1e-5, rtol=0)
+    assert abs(ekf_g - chip_smoke.EKF_REFERENCE["accel_ate_ekf"]) <= chip_smoke.METRIC_ATOL_M
+    assert gps_g == gps_c
+
+
+def test_service_replay_on_cuda_matches_cpu(cuda, tmp_path):
+    """A skidpad lap replayed from a .rec through `SlamService` on the card
+    and on the CPU, with the association kernel: discrete outputs exact,
+    values within POSE_ATOL, one kernel launch per keyframe on the card."""
+    from tpuslam_torch.runtime.service import SlamService, scenario_to_rec
+    scen = simulate(skidpad(), SimConfig(laps=1.3, seed=31))
+    cfg = SlamConfig(capacity=GraphCapacity(128, 64, 2048), time_between_keyframes_ms=100.0,
+                     association="nearest", use_pallas_association=True)
+    rec = str(tmp_path / "lap.rec")
+    scenario_to_rec(scen, rec, cfg)
+    runs = {}
+    for dev in ("cpu", cuda):
+        svc = SlamService(cfg, device=dev)
+        recorder = chip_smoke.Recorder(svc.slam)
+        before = A.launches
+        svc.run_replay(rec)
+        runs[str(dev)] = (svc, recorder, A.launches - before)
+    (sc, rc, _), (sg, rg, launched) = runs["cpu"], runs["cuda"]
+    assert sg.slam.keyframes_processed == sc.slam.keyframes_processed == launched
+    assert sg.slam.loop_closure_complete
+    chip_smoke.compare_outputs("replay", rg.stacked(), rc.stacked())
+    chip_smoke.compare_published("replay", rg.published, rc.published, sc.slam._gps_ref)

@@ -283,18 +283,24 @@ def test_first_association_with_kernel_runs_dense(monkeypatch):
     ("use_ekf_fusion", True),
     pytest.param("assoc_mesh", object(), id="assoc_mesh-value7")])
 def test_unported_config_raises(field, value):
-    """The EKF fusion and the mesh-sharded map are the only configurations
-    the port refuses, by name."""
+    """The mesh-sharded map is the one configuration the port refuses, by
+    name. The EKF fusion, refused until the service was ported, is read by
+    the service's `Slam` alone, as in the JAX package: `perform_keyframe`
+    takes the flag and gives what it gives without it."""
     cap = GraphCapacity(8, 8, 32)
     cfg = SlamConfig(capacity=cap)
-    kw = {}
+    args = (torch.tensor([[10.0, 0.0, 5.0, 1.0]] * 4), torch.ones(4, dtype=torch.bool),
+            torch.zeros(3))
     if field == "assoc_mesh":
-        kw["assoc_mesh"] = value
-    else:
-        cfg = cfg.with_(**{field: value})
-    with pytest.raises(NotImplementedError, match=field):
-        perform_keyframe(initial_state(cap, "cpu"), torch.zeros(4, 4),
-                         torch.zeros(4, dtype=torch.bool), torch.zeros(3), cfg, **kw)
+        with pytest.raises(NotImplementedError, match=field):
+            perform_keyframe(initial_state(cap, "cpu"), *args, cfg, assoc_mesh=value)
+        return
+    st, out = perform_keyframe(initial_state(cap, "cpu"), *args, cfg.with_(**{field: value}))
+    want_st, want_out = perform_keyframe(initial_state(cap, "cpu"), *args, cfg)
+    assert int(st.graph.n_poses) == 1
+    for a, b in ((st.graph.lm_xy, want_st.graph.lm_xy), (out.pose, want_out.pose),
+                 (st.graph.n_landmarks, want_st.graph.n_landmarks)):
+        assert torch.equal(a, b)
 
 
 @pytest.mark.parametrize("field,value", [

@@ -1,8 +1,9 @@
 """The port and its GPU smoke script import without JAX and without the JAX
 package: in a fresh interpreter with both `jax` and `tpuslam` made
 unimportable, every module of `tpuslam_torch` (the blocked pipeline, the
-batched sessions and the fusion among them), `chip_smoke` and the GPU tests
-`tests/test_torch_cuda.py` import."""
+batched sessions, the fusion, the live service with its IO stack, EKF,
+WGS84 projection and checkpoint, and the lidar front-end among them),
+`chip_smoke` and the GPU tests `tests/test_torch_cuda.py` import."""
 import subprocess
 import sys
 from pathlib import Path
@@ -23,6 +24,16 @@ from tpuslam_torch.frontend.blocked import run_sequences_blocked_batched
 from tpuslam_torch.parallel.batch import initial_states
 from tpuslam_torch.parallel.fusion import fuse_sessions
 from tpuslam_torch.parallel.multisession import stack_graphs
+from tpuslam_torch.core.slam import Slam
+from tpuslam_torch.frontend.motion import ekf_init, ekf_predict, ekf_update_position
+from tpuslam_torch.geometry.wgs84 import local_projector, to_cartesian, to_cartesian_torch
+from tpuslam_torch.io import envelope, messages, od4, proto, rec
+from tpuslam_torch.perception.attention import detect_cones, grid_cell_overflow
+from tpuslam_torch.perception.vlp16 import decode_point_cloud_reading
+from tpuslam_torch.runtime.checkpoint import load_checkpoint, save_checkpoint
+from tpuslam_torch.runtime.metrics import MetricsRegistry
+from tpuslam_torch.runtime.service import SlamService, scenario_to_rec
+from tpuslam_torch.sim.vlp16_sim import render_scene, scene_to_point_cloud_reading
 import chip_smoke
 sys.path.insert(0, "tests")
 import test_torch_cuda

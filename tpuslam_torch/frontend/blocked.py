@@ -79,8 +79,8 @@ last bits from run to run. Association is 'first', 'nearest' or
 'mahalanobis', dense or, for the last two, through the association kernel
 (`use_pallas_association`), which then runs once per block over all its
 observations. `run_sequence_blocked` raises `ValueError` where the JAX
-package's does (`blocked_supported`), and `NotImplementedError`, naming the
-field, for the EKF fusion and `assoc_mesh`, which are not ported yet.
+package's does (`blocked_supported`), and `NotImplementedError` for
+`assoc_mesh`, which is not ported yet.
 """
 from __future__ import annotations
 
@@ -1005,8 +1005,7 @@ def run_sequences_blocked_batched(states: SlamState, obs_seq, valid_seq, pose_se
     capacity for all sessions at once (its sums in another order). A
     session the blocks could not finish is finished by the per-frame path
     (the improved mode's per-frame engine too). Raises `ValueError` where
-    `run_sequence_blocked` does, and `NotImplementedError`, naming the
-    field, for the EKF fusion and `assoc_mesh`, which are not ported yet."""
+    `run_sequence_blocked` does."""
     if not blocked_supported(cfg, block):
         raise ValueError("run_sequences_blocked_batched: unsupported config, see "
                          "run_sequence_blocked")

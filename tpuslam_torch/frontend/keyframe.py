@@ -18,9 +18,10 @@ refines, fixed-lag or full-batch periodic GN), with 'first', 'nearest' or
 'mahalanobis' association, dense or, for the last two, through the
 association kernel (`use_pallas_association`; 'first' needs index order
 and stays dense, as in the JAX package), and the scan-form mapping step
-(`vectorized_mapping=False`). `perform_keyframe` raises
-`NotImplementedError`, naming the field, for the EKF fusion and the
-mesh-sharded map (`assoc_mesh`), which are not ported yet.
+(`vectorized_mapping=False`). `use_ekf_fusion` is read by the service's
+`core.slam.Slam` alone, as in the JAX package. `perform_keyframe` raises
+`NotImplementedError` for the mesh-sharded map (`assoc_mesh`), which is
+not ported yet.
 """
 from __future__ import annotations
 
@@ -68,15 +69,10 @@ def _gn_config(cfg: SlamConfig) -> gn.GNConfig:
 
 
 def _check_supported(cfg: SlamConfig, assoc_mesh) -> None:
-    """Refuse, by field name, every configuration this port does not run,
-    and, as the JAX package does, the two combinations that have no
-    meaning."""
-    unsupported = {"use_ekf_fusion": cfg.use_ekf_fusion, "assoc_mesh": assoc_mesh is not None}
-    for name, bad in unsupported.items():
-        if bad:
-            value = assoc_mesh if name == "assoc_mesh" else getattr(cfg, name)
-            raise NotImplementedError(
-                f"{name}={value!r} is not ported to tpuslam_torch yet")
+    """Refuse the one configuration this port does not run, by name, and,
+    as the JAX package does, the two combinations that have no meaning."""
+    if assoc_mesh is not None:
+        raise NotImplementedError(f"assoc_mesh={assoc_mesh!r} is not ported to tpuslam_torch yet")
     if not cfg.vectorized_mapping:
         if cfg.association == "mahalanobis":
             raise ValueError("mahalanobis association requires vectorized_mapping=True "
