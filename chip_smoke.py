@@ -60,8 +60,8 @@ Phases, in order; the first that fails ends the run with exit code 1:
                a checkpoint resume with an open frame and the EKF, held to
                the uninterrupted run;
   lidar    — bench.py's two vlp16_frontend scenes through `detect_cones`
-               with the JAX package's triples, held to VLP16_REFERENCE, and
-               with the port's own, held to its CPU run; the full-sweep
+               at its default seed, whose triples are the JAX package's,
+               held to VLP16_REFERENCE and to its CPU run; the full-sweep
                replay through the service, held to
                tests/test_perception.py's bounds;
   5. closure solve — `gauss_newton.optimize` on the graph the closure GN
@@ -82,6 +82,23 @@ Phases, in order; the first that fails ends the run with exit code 1:
                association kernel at the fusion shapes; the service replay's
                ms per keyframe, launches and reads, one EKF message, and
                `detect_cones` at both scenes in sweeps/s beside 10 Hz.
+  parallel — the multi-device tier on a one-rank NCCL mesh, each path
+               timed: the per-frame batched engine (`run_passes_batched`) on
+               the batched scenario in both configurations, held to
+               BATCHED_REFERENCE and to each session's `run_sequence`, one
+               association launch per frame for all sessions with the
+               kernel; `run_fleet_blocked` held to
+               `run_sequences_blocked_batched`, one launch per block;
+               `distributed_optimize` on the closure graph through the
+               Cholesky kernel at n = DISTRIBUTED_N, held to
+               `gauss_newton.optimize` and DISTRIBUTED_REFERENCE;
+               `multisession_optimize` on the batched sessions' graphs;
+               `fuse_sessions(mesh=...)` held to FUSION_REFERENCE; the
+               blocked lap with the mesh-sharded map (`assoc_mesh`) held to
+               the lap without it; then the same mesh paths in a spawned
+               world of GLOO_RANKS gloo ranks on cuda:0, held to the
+               one-rank results; after phase 6, as its kernel
+               rows need exact profiler counts.
 It prints a `{"kernels": [...]}` line, the card's name and power limit as
 nvidia-smi gives them, and last `{"ok": true, "device": {...}}`. Without a
 CUDA device it fails before any phase. It imports no JAX.
@@ -113,7 +130,7 @@ from tpuslam_torch.frontend.blocked import (
 from tpuslam_torch.frontend.keyframe import _gate_cost, _gn_config, periodic_gn
 from tpuslam_torch.frontend.pipeline import run_pass, run_sequence
 from tpuslam_torch.frontend.state import initial_state, session_state
-from tpuslam_torch.parallel.batch import initial_states
+from tpuslam_torch.parallel.batch import initial_states, run_passes_batched
 from tpuslam_torch.parallel.fusion import fuse_sessions, fusion_report
 from tpuslam_torch.ops import assoc_kernel as A
 from tpuslam_torch.ops import cholesky as C
@@ -123,7 +140,7 @@ from tpuslam_torch.geometry import wgs84
 from tpuslam_torch.geometry.spherical import cone_to_global
 from tpuslam_torch.io import messages as M
 from tpuslam_torch.io.rec import RecWriter
-from tpuslam_torch.perception.attention import AttentionConfig, detect_cones
+from tpuslam_torch.perception.attention import AttentionConfig, detect_cones, ransac_triples
 from tpuslam_torch.perception.vlp16 import decode_point_cloud_reading
 from tpuslam_torch.runtime.checkpoint import load_checkpoint, save_checkpoint
 from tpuslam_torch.runtime.config import SlamConfig
@@ -317,6 +334,32 @@ VLP16_RATE_HZ = 10.0        # the sensor's revolutions per second
 # the full-sweep replay (tests/test_perception.py:325-373): four sweeps and
 # GPS fixes 2 m apart through the service, the cones 1.5 m from the lidar
 SWEEP_REPLAY_CONES = [[8.0, 1.5], [11.0, -1.5], [14.0, 1.5], [17.0, -1.5], [20.0, 1.5]]
+# The multi-device tier (phase `parallel`): each mesh path on a one-rank NCCL
+# mesh (1 x 1), where every collective runs and is an identity, then in a
+# world of GLOO_RANKS gloo ranks spawned on cuda:0 (NCCL puts no two ranks on
+# one card), each path's shards split over the ranks, held to the one-rank
+# results. `distributed_optimize` solves the graph the closure GN solves
+# with the dense [3P, 3P] system, P = CAP.max_poses, through the Cholesky
+# kernel at the kernel's largest size; DISTRIBUTED_REFERENCE is the JAX
+# package's `distributed_optimize` of that graph on the CPU (1 x 2 mesh, 10
+# iterations), as `graph_metrics` gives it; tests/test_torch_parallel.py
+# recomputes it
+DISTRIBUTED_N = 3 * CAP.max_poses
+DISTRIBUTED_REFERENCE = dict(ate_graph=0.436961, map_err_median=0.371798)
+GLOO_RANKS, GLOO_TIMEOUT_S = 2, 300.0
+# the per-frame batched engine: every session is held to the blocked batched
+# run, and every PARALLEL_SINGLE_EVERY-th also to its own per-frame run
+PARALLEL_SINGLE_EVERY = 8
+# the cost of the scan-form mapping step's per-session loop in the per-frame
+# batched engine, beside the batched step, on the first frame of its pass:
+# ~83,000 launches per frame at S = 16, which the profiler takes ~20 s to
+# record on a slow host
+PARALLEL_SCAN_FRAMES = 1
+# the mesh-sharded association on the blocked lap: compat and I2 at block 16
+ASSOC_MESH_RUNS = {"first": ("first", 16), "I2_b16": ("I2", 16)}
+# the gloo world's map-sharded association: the pod map over two shards
+ASSOC_MESH_CASES = (("first", False), ("first", True), ("nearest", False),
+                    ("mahalanobis", False))
 
 
 def configs():
@@ -350,6 +393,17 @@ def lap_metrics(track, scen, state, outs) -> dict:
         map_err_median=float(np.median(np.linalg.norm(
             lm[:, None, :] - track.cones_xy[None], axis=-1).min(axis=1))),
     )
+
+
+def graph_metrics(track, scen, g) -> dict:
+    """Graph-pose ATE over the graph's poses and the median map error of a
+    graph, rounded to 6 places."""
+    n = int(g.n_poses)
+    lm = g.lm_xy[:int(g.n_landmarks)].cpu().numpy()
+    return dict(
+        ate_graph=round(ate(g.poses[:n, :2].cpu().numpy(), scen.gt_poses[:n, :2]), 6),
+        map_err_median=round(float(np.median(np.linalg.norm(
+            lm[:, None, :] - track.cones_xy[None], axis=-1).min(axis=1))), 6))
 
 
 def improved_lap(cfg, block, obs, valid, poses):
@@ -680,13 +734,20 @@ def check_fusion(name, got) -> None:
             raise AssertionError(f"fusion {name}: {k} = {got[k]}, JAX package {want}")
 
 
-def compare_session(what, st_b, out_b, st_1, out_1):
+def compare_session(what, st_b, out_b, st_1, out_1, deferred=False):
     """A session of a batched run against its own single-session run:
     discrete outputs and state exact (edges up to n_obs), values within
     BATCHED_ATOL (the batched closure GN is full-capacity, its sums in
-    another order)."""
+    another order). `deferred`: the batched run deferred its closure GN past
+    the closure frame's outputs, whose cone packet then comes from the map
+    before it and is left out."""
+    keep = slice(None)
+    if deferred:
+        keep = ~out_1.loop_closed
     for f in dataclasses.fields(out_1):
         a, b = getattr(out_b, f.name), getattr(out_1, f.name)
+        if f.name in ("cone_azimuth", "cone_distance"):
+            a, b = a[keep], b[keep]
         if a.dtype != b.dtype or a.shape != b.shape:
             raise AssertionError(f"{what}: outputs.{f.name} {a.dtype} {tuple(a.shape)}, "
                                  f"want {b.dtype} {tuple(b.shape)}")
@@ -1022,14 +1083,13 @@ def sweep_replay(device):
     return svc, lm, float(np.median(d)) if len(d) else float("inf")
 
 
-def profile_counts(fn, host_ops=True):
+def profile_counts(fn):
     """(device busy ms, kernel launches, device-to-host copies) of one call
     of `fn` under torch.profiler: device time summed over kernels and
-    copies. Without `host_ops` the profiler records the device activity
-    alone, which costs far less on a run of ~100,000 launches."""
+    copies. The profiler records the device activity alone, which costs far
+    less than host ops too on a run of ~100,000 launches."""
     from torch.profiler import ProfilerActivity, profile
-    activities = [ProfilerActivity.CUDA] + ([ProfilerActivity.CPU] if host_ops else [])
-    with profile(activities=activities) as prof:
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
         fn()
         torch.cuda.synchronize()
     dev = [e for e in prof.key_averages() if e.device_type.name == "CUDA"]
@@ -1064,6 +1124,110 @@ def cuda_ms(fn, reps: int, warmup: bool = True) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / reps
+
+
+def assoc_mesh_inputs(device):
+    """The pod-shape association world (ASSOC_SHAPES["pod"]) as the dense
+    `associate` takes it: observations, types, validity, landmarks, types,
+    validity and [M, 2, 2] inverse covariances; a tenth of each invalid."""
+    n, m = ASSOC_SHAPES["pod"]
+    oxy, ot, lxy, lt, packed = assoc_world(n, m, 0, device)
+    g = torch.Generator().manual_seed(3)
+    ov = (torch.rand(n, generator=g) > 0.1).to(device)
+    lv = (torch.rand(m, generator=g) > 0.1).to(device)
+    a, b, c = packed.unbind(-1)
+    cov = torch.stack([torch.stack([a, b], -1), torch.stack([b, c], -1)], -2)
+    return oxy, ot, ov, lxy, lt, lv, cov
+
+
+def assoc_mesh_call(fn, ins, mode, bug, *mesh):
+    """`fn` (`associate` or `associate_sharded`) on `ins` in one of
+    ASSOC_MESH_CASES' modes: the Euclidean gate 1.5 m, chi-square 9.21."""
+    gate = 9.21 if mode == "mahalanobis" else 1.5
+    return fn(*ins[:6], gate, *mesh, mode=mode,
+              lm_cov_inv=ins[6] if mode == "mahalanobis" else None, type_signed_bug=bug)
+
+
+def gloo_paths(mesh_e, mesh_s, work):
+    """The mesh paths of phase `parallel`'s gloo world on the inputs in
+    `work`: `distributed_optimize` and the map-sharded association over
+    'edges', the fleet over 'sessions', the dedup over 'edges'."""
+    from tpuslam_torch.parallel import associate_sharded, distributed_optimize, run_fleet_blocked
+    from tpuslam_torch.parallel.fusion import dedup_labels
+    d = distributed_optimize(work["graph"], work["gn_cfg"], mesh_e)
+    ins = assoc_mesh_inputs("cuda")
+    assoc = {f"{mode}{'_bug' if bug else ''}": assoc_mesh_call(associate_sharded, ins, mode, bug,
+                                                                mesh_e)
+             for mode, bug in ASSOC_MESH_CASES}
+    st, outs, done = run_fleet_blocked(*work["fleet_in"], work["fleet_cfg"], mesh_s,
+                                       block=BLOCK)
+    labels = dedup_labels(*work["dedup_in"], mesh=mesh_e)
+    return dict(distributed=(d.poses, d.lm_xy), assoc=assoc, fleet=(st, outs, done),
+                labels=labels)
+
+
+def _to(x, device):
+    """Tensors of a nested result (states, outputs, tuples, dicts) moved."""
+    if torch.is_tensor(x):
+        return x.to(device)
+    if dataclasses.is_dataclass(x) and not isinstance(x, type):
+        moved = {f.name: _to(getattr(x, f.name), device) for f in dataclasses.fields(x)}
+        changed = {k: v for k, v in moved.items() if v is not getattr(x, k)}
+        return dataclasses.replace(x, **changed) if changed else x
+    if isinstance(x, dict):
+        return {k: _to(v, device) for k, v in x.items()}
+    if isinstance(x, (list, tuple)):
+        return type(x)(_to(v, device) for v in x)
+    return x
+
+
+def gloo_rank(rank, port, workdir):
+    """One rank of phase `parallel`'s gloo world on cuda:0: the mesh paths
+    of `gloo_paths` on the work `workdir` holds, its results and kernel
+    launch counts saved there."""
+    from tpuslam_torch.parallel.mesh import initialize_distributed, make_slam_mesh
+    torch.backends.cuda.matmul.allow_tf32 = False
+    initialize_distributed("gloo", f"localhost:{port}", GLOO_RANKS, rank,
+                           timeout_s=GLOO_TIMEOUT_S)
+    try:
+        work = _to(torch.load(os.path.join(workdir, "work.pt"), weights_only=False), "cuda")
+        mesh_e = make_slam_mesh(1, GLOO_RANKS, device_type="cuda")
+        mesh_s = make_slam_mesh(GLOO_RANKS, 1, device_type="cuda")
+        A.launches = C.launches = 0
+        out = gloo_paths(mesh_e, mesh_s, work)
+        torch.cuda.synchronize()
+        out["launches"] = {"assoc": A.launches, "cholesky": C.launches}
+        out["on_cuda"] = all(t.device.type == "cuda" for t in (
+            out["distributed"][0], out["labels"], out["fleet"][0].graph.poses))
+    finally:
+        torch.distributed.destroy_process_group()
+    torch.save(_to(out, "cpu"), os.path.join(workdir, f"rank{rank}.pt"))
+
+
+def compare_mesh_lap(what, got, want):
+    """A lap through the mesh-sharded map against the lap without it, both
+    on the card: True when every discrete output and the edges are equal
+    (then values within POSE_ATOL); else False, held to the cross-path
+    contract (landmarks within CROSS_PATH_LANDMARKS, published poses within
+    CROSS_PATH_POSE_M)."""
+    (st_g, out_g), (st_w, out_w) = got, want
+    n = int(st_w.graph.n_obs)
+    same = all(torch.equal(getattr(out_g, f), getattr(out_w, f))
+               for f in ("n_landmarks", "cone_type", "send", "loop_closed"))
+    same = same and int(st_g.graph.n_obs) == n and torch.equal(st_g.graph.obs_lm[:n],
+                                                               st_w.graph.obs_lm[:n])
+    if same:
+        for a, b, f in ((out_g.pose, out_w.pose, "published poses"),
+                        (st_g.graph.poses, st_w.graph.poses, "graph poses"),
+                        (st_g.graph.lm_xy, st_w.graph.lm_xy, "landmarks")):
+            torch.testing.assert_close(a, b, atol=POSE_ATOL, rtol=0, msg=f"{what}: {f}")
+        return True
+    dl = abs(int(st_g.graph.n_landmarks) - int(st_w.graph.n_landmarks))
+    dp = float(torch.linalg.norm(out_g.pose[:, :2] - out_w.pose[:, :2], dim=1).max())
+    if dl > CROSS_PATH_LANDMARKS or dp > CROSS_PATH_POSE_M:
+        raise AssertionError(f"{what}: landmarks differ by {dl}, published poses by {dp:.3g} m: "
+                             "outside the cross-path contract")
+    return False
 
 
 class Smoke:
@@ -1568,26 +1732,29 @@ class Smoke:
 
     def lidar(self):
         """The lidar front-end on the card: bench.py's two scenes through
-        `detect_cones` with the JAX package's triples, held to
-        VLP16_REFERENCE, and with the port's own seed-0 triples, held to the
-        port's CPU run; then the full-sweep replay through the service,
-        held to tests/test_perception.py:325's bounds."""
+        `detect_cones` at its default seed, whose `ransac_triples` are
+        VLP16_REFERENCE's (the JAX package's seed-0 triples), held to
+        VLP16_REFERENCE and to the port's CPU run; then the full-sweep
+        replay through the service, held to tests/test_perception.py:325's
+        bounds."""
         for name, (pts, valid, acfg) in vlp16_scenes().items():
             want = VLP16_REFERENCE[name]
             if int(valid.sum()) != want["points"]:
                 raise AssertionError(f"lidar {name}: {int(valid.sum())} points, want "
                                      f"{want['points']}")
+            triples = ransac_triples(len(valid), acfg, 0, "cuda")
+            if triples.tolist() != want["triples"]:
+                raise AssertionError(f"lidar {name}: ransac_triples {triples.tolist()}, the "
+                                     f"JAX package's {want['triples']}")
             p, v = torch.tensor(pts, device="cuda"), torch.tensor(valid, device="cuda")
-            idx = torch.tensor(want["triples"], device="cuda")
-            err = check_cones(f"lidar {name} (JAX triples)",
-                              detect_cones(p, v, acfg, ransac_idx=idx), want["cones"])
+            got = detect_cones(p, v, acfg)
+            err = check_cones(f"lidar {name}", got, want["cones"])
             cones, ok, n = detect_cones(torch.tensor(pts), torch.tensor(valid), acfg)
-            err_own = check_cones(f"lidar {name} (own triples) vs the CPU run",
-                                  detect_cones(p, v, acfg), cones[ok])
-            self.log(f"lidar {name}: {int(valid.sum())} of {len(valid)} points, "
-                     f"{len(want['cones'])} cones as VLP16_REFERENCE (tuples within "
-                     f"{err:.3g}, atol {VLP16_ATOL}); with the port's seed-0 triples "
-                     f"{int(n)} cones, within {err_own:.3g} of the CPU run")
+            err_cpu = check_cones(f"lidar {name} vs the CPU run", got, cones[ok])
+            self.log(f"lidar {name}: {int(valid.sum())} of {len(valid)} points, seed-0 "
+                     f"triples equal to the JAX package's, {len(want['cones'])} cones as "
+                     f"VLP16_REFERENCE (tuples within {err:.3g}, atol {VLP16_ATOL}), within "
+                     f"{err_cpu:.3g} of the CPU run")
         svc, lm, med = sweep_replay("cuda")
         clouds = svc.metrics.counters["point_cloud_messages"]
         self.log(f"lidar sweep replay: {clouds} full sweeps through the service, "
@@ -1780,6 +1947,446 @@ class Smoke:
                                  f"{ratio['kernel'] / gamma:.3g} x gamma_(n+1)")
 
     # -- 6
+    # -- after closure solve
+    def parallel(self):
+        """The multi-device tier on the card, each mesh path on a one-rank
+        NCCL mesh and timed (CUDA events, median of 3; busy share, launches
+        and reads from one profiled call): the per-frame batched engine at
+        bench.py's 16 sessions (held to BATCHED_REFERENCE and to each
+        session's own `run_sequence`); the fleet (held to
+        `run_sequences_blocked_batched`); `distributed_optimize` through the
+        Cholesky kernel at n = DISTRIBUTED_N (held to `gauss_newton.optimize`
+        and DISTRIBUTED_REFERENCE); `multisession_optimize` on the 16
+        sessions' graphs; the fusion with a mesh (held to FUSION_REFERENCE);
+        the blocked lap with the mesh-sharded map (held to the lap without
+        it). Then the same paths in a world of GLOO_RANKS gloo ranks on the
+        card, held to the one-rank results. It runs after phase 6, whose
+        kernel rows need exact profiler counts: after this phase's work the
+        profiler has seen fewer kernel events than ran, so this phase times
+        its kernels with CUDA events alone."""
+        from tpuslam_torch.parallel.mesh import initialize_distributed, make_slam_mesh
+        initialize_distributed("nccl")
+        try:
+            mesh = make_slam_mesh(1, 1, device_type="cuda")
+            self.log(f"parallel: world of {torch.distributed.get_world_size()} NCCL rank, mesh "
+                     f"{tuple(mesh.mesh.shape)} {mesh.mesh_dim_names}")
+            self.par = {}
+            for step in (self.parallel_batched, self.parallel_fleet, self.parallel_distributed,
+                         self.parallel_multisession, self.parallel_fusion,
+                         self.parallel_assoc_mesh, self.parallel_gloo):
+                t0 = time.perf_counter()
+                step(mesh)
+                self.log(f"parallel: {step.__name__} in {time.perf_counter() - t0:.1f} s")
+        finally:
+            torch.distributed.destroy_process_group()
+
+    def parallel_row(self, what: str, fn) -> float:
+        """One timed row of phase `parallel`: median of 3 calls (CUDA events;
+        the caller's checked run was the warm-up), and one call under the
+        profiler."""
+        calls = sorted(cuda_ms(fn, reps=1, warmup=False) for _ in range(3))
+        ms = calls[1]
+        busy, kernels, reads = profile_counts(fn)
+        self.log(f"parallel timing: {what}: median {ms:.2f} ms of 3 (min {calls[0]:.2f}, max "
+                 f"{calls[2]:.2f}), device busy {busy:.2f} ms ({100 * busy / ms:.1f}%), "
+                 f"{kernels} kernel launches, {reads} device-to-host reads [{self.card}]")
+        return ms
+
+    def recording_assoc(self, shapes):
+        """Swap in an association kernel wrapper that records each launch's
+        (S, N, M) in `shapes`; returns the function that restores it."""
+        kernel = keyframe_mod.associate_kernel
+
+        def recording(obs_xy, obs_type, lm_xy, *a, **kw):
+            shapes.append((*obs_xy.shape[:-1], lm_xy.shape[-2]))
+            return kernel(obs_xy, obs_type, lm_xy, *a, **kw)
+        keyframe_mod.associate_kernel = recording
+
+        def restore():
+            keyframe_mod.associate_kernel = kernel
+        return restore
+
+    def parallel_batched(self, mesh):
+        """The per-frame batched engine (`run_passes_batched`) on bench.py's
+        batched scenario in both configurations: each session's counts
+        equal to BATCHED_REFERENCE, every session held to the blocked
+        batched run of phase `batched`'s path and every PARALLEL_SINGLE_EVERY-th
+        one to its own `run_sequence` on the card (discrete exact, values
+        within BATCHED_ATOL, the closure frame's packet from the map before
+        the deferred closure GN); with the kernel, one association launch
+        per frame for all sessions at S x N x M = (16, 64, 256), then the
+        kernel at that shape timed; and the launches per frame of the
+        scan-form mapping step's per-session loop beside the batched step's
+        on the first PARALLEL_SCAN_FRAMES frame(s)."""
+        obs_n, valid_n, poses_n, t = batched_scenario(self.track, len(self.scen.times))
+        obs, valid, poses = (torch.tensor(x, device="cuda") for x in (obs_n, valid_n, poses_n))
+        S, N = obs.shape[0], obs.shape[2]
+        cap = batched_cap(t)
+        self.par.update(batched_in=(obs, valid, poses), t=t, cap=cap)
+        paths = self.kernels["assoc"].setdefault("launches_by_path", {})
+        shape = (S, N, cap.max_landmarks)
+        for name, cfg in batched_configs(cap).items():
+            shapes = []
+            restore = self.recording_assoc(shapes)
+            A.launches = C.launches = 0
+            try:
+                states, outs = run_passes_batched(obs, valid, poses, cfg, device="cuda")
+                torch.cuda.synchronize()
+            finally:
+                restore()
+            counts = {"assoc": A.launches, "cholesky": C.launches}
+            metrics = [session_metrics(states, outs, s) for s in range(S)]
+            for k, want in BATCHED_REFERENCE.items():
+                got = [m[k] for m in metrics]
+                if got != want:
+                    raise AssertionError(f"per-frame batched {name}: {k} {got}, JAX package "
+                                         f"{want}")
+            want = {"assoc": t if name == "nearest" else 0, "cholesky": 0}
+            if counts != want or len(shapes) != want["assoc"] or set(shapes) - {shape}:
+                raise AssertionError(f"per-frame batched {name}: launches {counts} at "
+                                     f"{set(shapes)}; want {want} at {shape}")
+            blk_st, blk_outs = run_sequences_blocked_batched(
+                initial_states(cap, S, "cuda"), obs, valid, poses, cfg, block=BLOCK)
+            for s in range(S):
+                compare_session(f"per-frame batched {name} session {s} vs blocked batched",
+                                session_state(states, s), blocked_mod._take(outs, s),
+                                session_state(blk_st, s), blocked_mod._take(blk_outs, s),
+                                deferred=True)
+            singles = list(range(0, S, PARALLEL_SINGLE_EVERY))
+            for s in singles:
+                one = run_sequence(initial_state(cap, "cuda"), obs[s], valid[s], poses[s], cfg)
+                compare_session(f"per-frame batched {name} session {s}",
+                                session_state(states, s), blocked_mod._take(outs, s), *one,
+                                deferred=True)
+            self.log(f"parallel: per-frame batched {name}: {S} sessions x {t} frames, capacity "
+                     f"{cap}: counts equal to BATCHED_REFERENCE, every session to the blocked "
+                     f"batched run and sessions {singles} to their own run_sequence (discrete "
+                     f"exact, values within {BATCHED_ATOL}); launches {counts}"
+                     + (f", one assoc launch per frame for all {S} sessions at S x N x M = "
+                        f"{shape}" if want["assoc"] else ""))
+            if name == "nearest":
+                paths["per_frame_batched"] = counts["assoc"]
+                self.assoc_shape_timing("per_frame_batched", shape, counts["assoc"])
+            else:
+                self.par["graphs"] = states.graph
+            ms = self.parallel_row(
+                f"run_passes_batched {name}, S={S}, {t} frames",
+                lambda cfg=cfg: run_passes_batched(obs, valid, poses, cfg, device="cuda"))
+            ms_b = self.parallel_row(
+                f"run_sequences_blocked_batched {name}, S={S}, block {BLOCK}",
+                lambda cfg=cfg: run_sequences_blocked_batched(
+                    initial_states(cap, S, "cuda"), obs, valid, poses, cfg, block=BLOCK))
+            self.log(f"parallel timing: {name}: per-frame batched {S * t / ms * 1e3:.1f} "
+                     f"frames/s, blocked batched {S * t / ms_b * 1e3:.1f} frames/s "
+                     f"({ms / ms_b:.1f}x the time) [{self.card}]")
+        # the scan-form mapping step has no batched form: each session steps
+        # its frame through its own `perform_keyframe`. One call each (CUDA
+        # events; eager, so nothing to warm up), and one under the profiler
+        k, first = PARALLEL_SCAN_FRAMES, batched_configs(cap)["first"]
+        for what, cfg in (("vectorized", first),
+                          ("scan form", dataclasses.replace(first, vectorized_mapping=False))):
+            def run(cfg=cfg):
+                return run_passes_batched(obs[:, :k], valid[:, :k], poses[:, :k], cfg,
+                                          device="cuda")
+            ms = cuda_ms(run, reps=1, warmup=False)
+            busy, kernels, reads = profile_counts(run)
+            self.log(f"parallel timing: per-frame batched first, {what} mapping step, S={S}, "
+                     f"first {k} frame(s): {kernels / k:.1f} kernel launches, {reads / k:.1f} "
+                     f"device-to-host reads and {ms / k:.2f} ms per frame of {S} sessions, "
+                     f"device busy {busy:.2f} ms ({100 * busy / ms:.1f}%) [{self.card}]")
+
+    def assoc_shape_timing(self, key, shape, launches):
+        """The association kernel at a path's (S, N, M) on S `assoc_world`s,
+        beside its twin, into the `kernels` line's entry `key`."""
+        S, n, m = shape
+        worlds = [assoc_world(n, m, i) for i in range(S)]
+        oxy, ot, lxy, lt, _ = (torch.stack([w[k] for w in worlds]) for k in range(5))
+        run = functools.partial(A.associate_kernel, oxy, ot, lxy, lt, 1.44)
+        nbytes = sum(x.numel() * x.element_size() for x in (oxy, ot, lxy, lt, *run()))
+        r = dict(shape=list(shape), launches=launches,
+                 ms=statistics.median(cuda_ms(run, reps=100) for _ in range(5)),
+                 plain_ms=cuda_ms(functools.partial(A.associate_plain, oxy, ot, lxy, lt, 1.44),
+                                  reps=50), library_ms=None)
+        r["bound_ms"], r["bound_by"] = bound(S * assoc_flop(n, m, False), nbytes)
+        self.kernels["assoc"][key] = r
+        self.log(f"parallel timing: assoc {key} S={S} N={n} M={m}: per wrapper call "
+                 f"{r['ms'] * 1e3:.2f} us, plain twin {r['plain_ms'] * 1e3:.1f} us, bound "
+                 f"{r['bound_ms'] * 1e3:.4g} us ({r['bound_by']}) [{self.card}]")
+
+    def parallel_fleet(self, mesh):
+        """`run_fleet_blocked` over the mesh's 'sessions' axis on the same 16
+        sessions at block BLOCK with the kernel: every frame done, held to
+        `run_sequences_blocked_batched` (discrete exact, values within
+        BATCHED_ATOL), one association launch per block at (16, 512, 256)."""
+        from tpuslam_torch.parallel import run_fleet_blocked
+        obs, valid, poses = self.par["batched_in"]
+        cap, t = self.par["cap"], self.par["t"]
+        S = obs.shape[0]
+        cfg = batched_configs(cap)["nearest"]
+        fleet_in = blocked_mod._pad_inputs(obs, valid, poses, cfg, BLOCK)
+        nc, _ = blocked_mod._pick_compact(fleet_in[1], initial_states(cap, S, "cuda"))
+        t_pad = fleet_in[0].shape[1]
+        shapes = []
+        restore = self.recording_assoc(shapes)
+        A.launches = C.launches = 0
+        try:
+            st, outs, done = run_fleet_blocked(initial_states(cap, S, "cuda"), *fleet_in, cfg,
+                                               mesh, block=BLOCK)
+            torch.cuda.synchronize()
+        finally:
+            restore()
+        counts = {"assoc": A.launches, "cholesky": C.launches}
+        if done != [t_pad] * S:
+            raise AssertionError(f"fleet: done_upto {done}, want {[t_pad] * S}")
+        ref_st, ref_outs = run_sequences_blocked_batched(initial_states(cap, S, "cuda"), obs,
+                                                         valid, poses, cfg, block=BLOCK)
+        for s in range(S):
+            compare_session(f"fleet session {s}", session_state(st, s),
+                            blocked_mod._rows(blocked_mod._take(outs, s), 0, t),
+                            session_state(ref_st, s), blocked_mod._take(ref_outs, s))
+        kc = [session_metrics(st, outs, s)["closure_frame"] for s in range(S)]
+        blocks = max(kc) // BLOCK + 1 + t_pad // BLOCK - min(kc) // BLOCK
+        shape = (S, BLOCK * nc, cap.max_landmarks)
+        if counts != {"assoc": blocks, "cholesky": 0} or set(shapes) != {shape}:
+            raise AssertionError(f"fleet: launches {counts} at {set(shapes)}; want {blocks} "
+                                 f"assoc launches at {shape}")
+        self.kernels["assoc"]["launches_by_path"]["fleet"] = counts["assoc"]
+        self.par.update(fleet_in=fleet_in, fleet_cfg=cfg, fleet=(st, outs, done))
+        self.log(f"parallel: fleet: {S} sessions over 'sessions' at block {BLOCK} (compaction "
+                 f"width {nc}), every frame done, equal to run_sequences_blocked_batched "
+                 f"(discrete exact, values within {BATCHED_ATOL}); {blocks} assoc launches at "
+                 f"S x N x M = {shape}")
+        self.parallel_row(f"run_fleet_blocked nearest, S={S}, mesh {tuple(mesh.mesh.shape)}",
+                          lambda: run_fleet_blocked(initial_states(cap, S, "cuda"), *fleet_in,
+                                                    cfg, mesh, block=BLOCK))
+
+    def parallel_distributed(self, mesh):
+        """`distributed_optimize` on the graph the closure GN solves, through
+        the Cholesky kernel: one launch per iteration at n = DISTRIBUTED_N,
+        within POSE_ATOL of `gauss_newton.optimize` and DISTRIBUTED_REFERENCE
+        within METRIC_ATOL_M; then the kernel at that size against its twin
+        and `cholesky_ex`."""
+        from tpuslam_torch.parallel import distributed_optimize
+        g = self.closure_graph
+        cfg = dataclasses.replace(_gn_config(configs()["first"]), use_cholesky_kernel=True)
+        sizes, seen = [], []
+        kernel = C.cholesky_kernel
+
+        def recording(a):
+            sizes.append(a.shape[-1])
+            seen[:] = [a]
+            return kernel(a)
+
+        C.cholesky_kernel = recording
+        A.launches = C.launches = 0
+        try:
+            d = distributed_optimize(g, cfg, mesh)
+            torch.cuda.synchronize()
+        finally:
+            C.cholesky_kernel = kernel
+        launches = C.launches
+        if launches != cfg.iterations or set(sizes) != {DISTRIBUTED_N}:
+            raise AssertionError(f"distributed: {launches} cholesky launches at {set(sizes)}, "
+                                 f"want {cfg.iterations} at n = {DISTRIBUTED_N}")
+        want = gn.optimize(g, _gn_config(configs()["first"]))
+        torch.testing.assert_close(d.poses, want.poses, atol=POSE_ATOL, rtol=0)
+        torch.testing.assert_close(d.lm_xy, want.lm_xy, atol=POSE_ATOL, rtol=0)
+        got = graph_metrics(self.track, self.scen, d)
+        check_metrics("distributed", got, DISTRIBUTED_REFERENCE)
+        self.kernels["cholesky"]["launches_by_path"]["distributed"] = launches
+        self.par.update(graph=g, gn_cfg=cfg, distributed=(d.poses, d.lm_xy))
+        self.log(f"parallel: distributed_optimize: {launches} cholesky launches at n = "
+                 f"{DISTRIBUTED_N}, within {POSE_ATOL} of gauss_newton.optimize "
+                 f"(max|dpose| {float((d.poses - want.poses).abs().max()):.3g}); "
+                 + json.dumps(got) + " as DISTRIBUTED_REFERENCE")
+        self.parallel_row(f"distributed_optimize, n = {DISTRIBUTED_N}, {cfg.iterations} "
+                          "iterations, Cholesky kernel",
+                          lambda: distributed_optimize(g, cfg, mesh))
+        s = seen[0]
+        n = s.shape[-1]
+        turns = [cuda_ms(f, reps=10) for f in (lambda: torch.linalg.cholesky_ex(s),
+                                                lambda: C.cholesky_kernel(s),
+                                                lambda: C.cholesky_kernel(s),
+                                                lambda: torch.linalg.cholesky_ex(s))]
+        plain = cuda_ms(lambda: C.cholesky_plain(s), reps=1)
+        b_ms, b_by = bound(n ** 3 / 3, 2 * n * n * s.element_size())
+        self.kernels["cholesky"]["distributed"] = dict(
+            shape=[n, n], launches=launches, ms=(turns[1] + turns[2]) / 2, plain_ms=plain,
+            library_ms=(turns[0] + turns[3]) / 2, bound_ms=b_ms, bound_by=b_by)
+        self.log(f"parallel timing: cholesky at n = {n} (distributed_optimize's S): kernel "
+                 f"{turns[1] * 1e3:.1f} / {turns[2] * 1e3:.1f} us per call, cholesky_ex "
+                 f"{turns[0] * 1e3:.1f} / {turns[3] * 1e3:.1f} us, plain twin "
+                 f"{plain * 1e3:.1f} us, bound {b_ms * 1e3:.3g} us ({b_by}) [{self.card}]")
+
+    def parallel_multisession(self, mesh):
+        """`multisession_optimize` on the 16 sessions' graphs after the
+        per-frame batched pass (compat): within POSE_ATOL of the stacked
+        `gauss_newton.optimize` at the same iterations, no kernel launched
+        (the JAX package's multi-session solve takes the library)."""
+        from tpuslam_torch.parallel import multisession_optimize
+        stacked = self.par["graphs"]
+        cfg = _gn_config(batched_configs(self.par["cap"])["first"])
+        A.launches = C.launches = 0
+        got = multisession_optimize(stacked, cfg, mesh)
+        torch.cuda.synchronize()
+        if C.launches:
+            raise AssertionError(f"multisession: {C.launches} cholesky kernel launches")
+        want = gn.optimize(stacked, dataclasses.replace(cfg, early_exit_tol=0.0))
+        torch.testing.assert_close(got.poses, want.poses, atol=POSE_ATOL, rtol=0)
+        torch.testing.assert_close(got.lm_xy, want.lm_xy, atol=POSE_ATOL, rtol=0)
+        S, P = stacked.poses.shape[:2]
+        self.log(f"parallel: multisession_optimize: {S} sessions, n = {3 * P} each, "
+                 f"{cfg.iterations} iterations, within {POSE_ATOL} of the stacked optimize "
+                 f"(max|dpose| {float((got.poses - want.poses).abs().max()):.3g})")
+        self.parallel_row(f"multisession_optimize, S={S}, n = {3 * P}",
+                          lambda: multisession_optimize(stacked, cfg, mesh))
+
+    def parallel_fusion(self, mesh):
+        """bench.py's fusion (phase `fusion`'s sessions, dense) through
+        `fuse_sessions(mesh=...)`: the landmark-sharded dedup and the joint
+        GN as `distributed_optimize` (n = 9216, `cholesky_ex`), both
+        variants held to FUSION_REFERENCE (counts exact, map errors within
+        METRIC_ATOL_M)."""
+        cfg, run = self.fusion_run
+        gcfg = fusion_gn_config(cfg)
+        gate = cfg.same_cone_threshold
+        st, st_d = run["states"], run["states_d"]
+
+        def fuse():
+            return fuse_sessions(st.graph, cfg=gcfg, gate=gate, lm_info=st.lm_info_xy,
+                                 align=False, mesh=mesh)
+        fused, rep = fuse()
+        fused_d, rep_d = fuse_sessions(st_d.graph, cfg=gcfg, gate=2.0 * gate,
+                                       lm_info=st_d.lm_info_xy, align=True, robust=True,
+                                       mesh=mesh)
+        r, r_d = fusion_report(rep), fusion_report(rep_d)
+        got = dict(fused_landmarks=r["n_merged_landmarks"],
+                   cross_session_merges=r["n_cross_session_merges"],
+                   fused_landmarks_drifted=r_d["n_merged_landmarks"],
+                   cross_session_merges_drifted=r_d["n_cross_session_merges"],
+                   map_error_fused_m=map_error(self.track, fused),
+                   map_error_fused_drifted_m=map_error(self.track, fused_d))
+        check_fusion("mesh", got)
+        g = st.graph
+        valid = (torch.arange(g.lm_xy.shape[1], device="cuda")[None] < g.n_landmarks[:, None])
+        self.par["dedup_in"] = (g.lm_xy.reshape(-1, 2), g.lm_type.reshape(-1),
+                                valid.reshape(-1), gate)
+        self.par["labels"] = rep["labels"]
+        self.log("parallel: fuse_sessions(mesh): " + json.dumps(got)
+                 + " as FUSION_REFERENCE (counts exact, map errors within "
+                 f"{METRIC_ATOL_M} m)")
+        self.parallel_row(f"fuse_sessions(mesh), {g.poses.shape[0]} sessions, joint GN "
+                          f"n = {3 * fused.poses.shape[0]}", fuse)
+
+    def parallel_assoc_mesh(self, mesh):
+        """`run_sequence_blocked(..., assoc_mesh=mesh)` on the bench lap
+        (ASSOC_MESH_RUNS): the kernel never launched, held to the lap
+        without the mesh (discrete exact, values within POSE_ATOL, then the
+        JAX package's numbers too) or, if a gate decision flipped, to the
+        cross-path contract."""
+        obs, valid, poses = inputs(self.scen, "cuda")
+        for run, (cfg_name, block) in ASSOC_MESH_RUNS.items():
+            cfg = {**configs(), **improved_configs()}[cfg_name]
+
+            def lap(cfg=cfg, block=block, m=mesh):
+                return run_sequence_blocked(initial_state(CAP, "cuda"), obs, valid, poses, cfg,
+                                            block=block, assoc_mesh=m)
+            A.launches = C.launches = 0
+            got = lap()
+            torch.cuda.synchronize()
+            if A.launches:
+                raise AssertionError(f"assoc_mesh {run}: {A.launches} assoc kernel launches")
+            want = lap(m=None)
+            exact = compare_mesh_lap(f"assoc_mesh {run}", got, want)
+            metrics = lap_metrics(self.track, self.scen, *got)
+            if exact:
+                check_metrics(run, metrics)
+            self.log(f"parallel: run_sequence_blocked {run} at block {block} with the "
+                     f"mesh-sharded map: " + json.dumps(metrics) + (
+                         f"; equal to the lap without the mesh (discrete exact, values within "
+                         f"{POSE_ATOL}) and to the JAX package's numbers" if exact else
+                         "; a gate decision differs from the lap without the mesh: within "
+                         "the cross-path contract"))
+            self.parallel_row(f"run_sequence_blocked {run}, block {block}, assoc_mesh", lap)
+            if run == "first":
+                # phase 6 times the I2 lap at block 16 without the mesh, and
+                # the compat lap at block 32 only
+                self.parallel_row(f"run_sequence_blocked {run}, block {block}, no mesh",
+                                  functools.partial(lap, m=None))
+
+    def parallel_gloo(self, mesh):
+        """The mesh paths in a world of GLOO_RANKS gloo ranks on cuda:0,
+        spawned here (the kernels already built): `distributed_optimize` and
+        the map-sharded association (the pod map) over 'edges', the fleet
+        over 'sessions', the dedup over 'edges'. Each rank's results are held
+        to the one-rank run of the same paths: decisions exact, the GN
+        within the JAX test's 5e-4, the fleet's values within BATCHED_ATOL."""
+        import shutil
+        from tpuslam_torch.parallel import associate_sharded
+        from tpuslam_torch.parallel.mesh import free_port
+        from tpuslam_torch.ops.association import associate
+        work = {k: self.par[k] for k in ("graph", "gn_cfg", "fleet_cfg", "dedup_in")}
+        S = self.par["fleet_in"][0].shape[0]
+        work["fleet_in"] = (initial_states(self.par["cap"], S, "cuda"), *self.par["fleet_in"])
+        one = gloo_paths(mesh, mesh, work)
+        torch.cuda.synchronize()
+        dense = {f"{m}{'_bug' if b else ''}": assoc_mesh_call(associate, assoc_mesh_inputs("cuda"),
+                                                               m, b)
+                 for m, b in ASSOC_MESH_CASES}
+        for k, (idx, matched, cost) in one["assoc"].items():
+            if not (torch.equal(matched, dense[k][1])
+                    and torch.equal(idx[matched], dense[k][0][matched])):
+                raise AssertionError(f"gloo: one-rank associate_sharded {k} differs from the "
+                                     "dense association")
+        workdir = tempfile.mkdtemp(prefix="chip_smoke_gloo_")
+        try:
+            torch.save(_to(work, "cpu"), os.path.join(workdir, "work.pt"))
+            t0 = time.perf_counter()
+            ctx = torch.multiprocessing.start_processes(
+                gloo_rank, args=(free_port(), workdir), nprocs=GLOO_RANKS, join=False,
+                start_method="spawn")
+            deadline = t0 + GLOO_TIMEOUT_S + 60.0
+            while not ctx.join(timeout=5):
+                if time.perf_counter() > deadline:
+                    for p in ctx.processes:
+                        p.kill()
+                    raise AssertionError(f"gloo world: ranks ran past {GLOO_TIMEOUT_S + 60} s")
+            wall = time.perf_counter() - t0
+            ranks = [_to(torch.load(os.path.join(workdir, f"rank{r}.pt"), weights_only=False),
+                         "cuda") for r in range(GLOO_RANKS)]
+        finally:
+            shutil.rmtree(workdir, ignore_errors=True)
+        one_st, one_outs, one_done = one["fleet"]
+        for r, got in enumerate(ranks):
+            what = f"gloo rank {r}"
+            if not got["on_cuda"]:
+                raise AssertionError(f"{what}: results not on the card")
+            for a, b in zip(got["distributed"], one["distributed"]):
+                torch.testing.assert_close(a, b, atol=5e-4, rtol=0, msg=f"{what}: distributed")
+            for k, (idx, matched, cost) in got["assoc"].items():
+                o_idx, o_matched, o_cost = one["assoc"][k]
+                if not (torch.equal(matched, o_matched) and torch.equal(idx, o_idx)):
+                    raise AssertionError(f"{what}: associate_sharded {k} decisions differ")
+                torch.testing.assert_close(cost, o_cost, rtol=1e-6, atol=0, msg=f"{what}: {k}")
+            st, outs, done = got["fleet"]
+            if done != one_done:
+                raise AssertionError(f"{what}: fleet done_upto {done}, one rank {one_done}")
+            for s in range(S):
+                compare_session(f"{what} fleet session {s}", session_state(st, s),
+                                blocked_mod._take(outs, s), session_state(one_st, s),
+                                blocked_mod._take(one_outs, s))
+            if not torch.equal(got["labels"], one["labels"]):
+                raise AssertionError(f"{what}: dedup labels differ")
+            self.log(f"parallel: {what} of {GLOO_RANKS} (gloo on cuda:0): distributed_optimize "
+                     f"over 'edges' within 5e-4 of one rank (max|dpose| "
+                     f"{float((got['distributed'][0] - one['distributed'][0]).abs().max()):.3g}), "
+                     f"associate_sharded {list(got['assoc'])} at {ASSOC_SHAPES['pod']} exact, "
+                     f"the fleet over 'sessions' ({S // GLOO_RANKS} sessions per rank) equal "
+                     f"(discrete exact, values within {BATCHED_ATOL}), dedup labels exact; "
+                     f"kernel launches {got['launches']}")
+        self.log(f"parallel: gloo world of {GLOO_RANKS} ranks on cuda:0 in {wall:.1f} s "
+                 f"(spawn included)")
+
     @staticmethod
     def laps(obs, valid, poses):
         """name -> one lap: the per-frame engine and the blocked pipeline
@@ -1851,7 +2458,7 @@ class Smoke:
             ms = np.array(rec.seconds) * 1e3
             t = len(ms)
             busy, kernels, reads = profile_counts(
-                functools.partial(service_replay, cfg, self.scen, "cuda"), host_ops=False)
+                functools.partial(service_replay, cfg, self.scen, "cuda"))
             self.log(f"timing: service replay {name}: {t} keyframes, median "
                      f"{np.median(ms):.3f} ms, p99 {np.percentile(ms, 99):.3f} ms, max "
                      f"{ms.max():.3f} ms per keyframe (process_frame to a synchronize), "
@@ -2278,7 +2885,7 @@ def main() -> int:
     smoke = Smoke()
     phases = (smoke.build, smoke.kernels_vs_plain, smoke.compat, smoke.kernel_association,
               smoke.blocked, smoke.improved, smoke.batched, smoke.fusion, smoke.service,
-              smoke.lidar, smoke.closure_solve, smoke.timing)
+              smoke.lidar, smoke.closure_solve, smoke.timing, smoke.parallel)
     if sys.argv[1:] == ["--assoc-plans"]:
         phases = (smoke.build, smoke.assoc_plans, smoke.assoc_host)
     elif sys.argv[1:]:

@@ -217,9 +217,18 @@ def test_blocked_rejects_unsupported_config():
             with pytest.raises(err, match=match):
                 run_sequence_blocked(initial_state(cap, "cpu"), *ins,
                                      SlamConfig(capacity=cap, **kw), block=8)
-    with pytest.raises(NotImplementedError, match="assoc_mesh"):
-        run_sequence_blocked(initial_state(cap, "cpu"), *ins, SlamConfig(capacity=cap),
-                             block=8, assoc_mesh=object())
+    # the mesh-sharded map, refused until the multi-device tier was ported,
+    # runs: on a one-rank mesh it gives the dense run's results (without the
+    # localizer's signed type compare, which index providers do not have,
+    # as in the JAX package)
+    from tpuslam_torch.parallel.mesh import initialize_distributed, make_slam_mesh
+    initialize_distributed("gloo")
+    mesh = make_slam_mesh(1, 1, device_type="cpu")
+    cfg = SlamConfig(capacity=cap, localizer_type_bug=False)
+    _assert_bit_equal(run_sequence_blocked(initial_state(cap, "cpu"), *ins, cfg, block=8,
+                                           assoc_mesh=mesh),
+                      run_sequence_blocked(initial_state(cap, "cpu"), *ins, cfg, block=8),
+                      "assoc_mesh")
 
 
 def test_blocked_zero_frames_equals_run_sequence():

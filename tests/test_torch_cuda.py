@@ -476,3 +476,109 @@ def test_service_replay_on_cuda_matches_cpu(cuda, tmp_path):
     assert sg.slam.loop_closure_complete
     chip_smoke.compare_outputs("replay", rg.stacked(), rc.stacked())
     chip_smoke.compare_published("replay", rg.published, rc.published, sc.slam._gps_ref)
+
+
+@pytest.mark.parametrize("name", ["first", "nearest"])
+def test_passes_batched_on_cuda_matches_cpu(cuda, name):
+    """Three skidpad sessions through the per-frame batched engine on the
+    card against the port's CPU run of it: discrete outputs exact, values
+    within the closure GN's tolerance; with the kernel, one launch per
+    frame for all sessions."""
+    from tpuslam_torch.parallel.batch import run_passes_batched
+    scens = [simulate(skidpad(), SimConfig(laps=1.3, seed=2 + s)) for s in range(3)]
+    t = min(len(sc.times) for sc in scens)
+    ins = [np.stack([getattr(sc, f)[:t] for sc in scens]) for f in ("obs", "obs_valid",
+                                                                   "odom_poses")]
+    ins = [x.astype(np.float32) if x.dtype == np.float64 else x for x in ins]
+    kw = {} if name == "first" else dict(association="nearest", use_pallas_association=True)
+    cfg = SlamConfig(capacity=GraphCapacity(128, 128, 4096), **kw)
+    before = A.launches
+    sg, og = run_passes_batched(*ins, cfg, device=cuda)
+    launched = A.launches - before
+    sc, oc = run_passes_batched(*ins, cfg, device="cpu")
+    assert launched == (t if name == "nearest" else 0)
+    assert bool(sg.loop_closure_complete.all())
+    for f in ("send", "loop_closed", "n_landmarks", "cone_type"):
+        assert torch.equal(getattr(og, f).cpu(), getattr(oc, f)), f
+    for f in ("n_landmarks", "n_obs", "n_poses", "lm_type"):
+        assert torch.equal(getattr(sg.graph, f).cpu(), getattr(sc.graph, f)), f
+    np.testing.assert_allclose(sg.graph.poses.cpu().numpy(), sc.graph.poses.numpy(), atol=1e-3)
+    np.testing.assert_allclose(og.pose.cpu().numpy(), oc.pose.numpy(), atol=1e-3)
+
+
+@pytest.fixture(scope="module")
+def nccl_mesh():
+    """A one-rank NCCL world in this process and its 1 x 1 mesh on the card,
+    destroyed after the module's cases."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    import torch.distributed as dist
+    from tpuslam_torch.parallel.mesh import initialize_distributed, make_slam_mesh
+    torch.backends.cuda.matmul.allow_tf32 = False
+    mine = initialize_distributed("nccl")
+    yield make_slam_mesh(1, 1, device_type="cuda")
+    if mine:
+        dist.destroy_process_group()
+
+
+def test_world_of_one_mesh_paths_on_cuda(cuda, nccl_mesh):
+    """The mesh paths on a one-rank NCCL mesh on the card, each against its
+    unsharded form on the card, with their kernel launches:
+    `distributed_optimize` through the Cholesky kernel (one launch per
+    iteration, within 1e-3 of `gauss_newton.optimize`); the fleet with
+    the association kernel (one launch per block, equal to the batched
+    core); `associate_sharded` (equal to `associate`); the fusion with a
+    mesh (labels exact, values within 1e-3 of the fusion without one)."""
+    import dataclasses
+
+    from tpuslam_torch.backend import gauss_newton as gn
+    from tpuslam_torch.frontend.blocked import blocked_core_batched
+    from tpuslam_torch.frontend.keyframe import _gn_config
+    from tpuslam_torch.ops.association import associate
+    from tpuslam_torch.parallel import (
+        associate_sharded, distributed_optimize, run_fleet_blocked,
+    )
+    scens = [simulate(skidpad(), SimConfig(laps=1.3, seed=2 + s)) for s in range(2)]
+    t = min(len(sc.times) for sc in scens) // 8 * 8
+    obs, valid, poses = (torch.tensor(np.stack([getattr(sc, f)[:t] for sc in scens]),
+                                      device=cuda)
+                         for f in ("obs", "obs_valid", "odom_poses"))
+    obs, poses = obs.float(), poses.float()
+    cfg = SlamConfig(capacity=GraphCapacity(128, 128, 4096), association="nearest",
+                     use_pallas_association=True)
+    before = A.launches
+    st, outs, done = run_fleet_blocked(initial_states(cfg.capacity, 2, cuda), obs, valid, poses,
+                                       cfg, nccl_mesh, block=8)
+    launched = A.launches - before
+    ref, ref_outs, ref_done = blocked_core_batched(initial_states(cfg.capacity, 2, cuda), obs,
+                                                   valid, poses, cfg, 8)
+    assert done == ref_done == [t, t] and launched > 0
+    for f in ("loop_closed", "n_landmarks", "cone_type", "send"):
+        assert torch.equal(getattr(outs, f), getattr(ref_outs, f)), f
+    np.testing.assert_allclose(st.graph.poses.cpu().numpy(), ref.graph.poses.cpu().numpy(),
+                               atol=1e-3)
+
+    g = dataclasses.replace(st.graph, **{f.name: getattr(st.graph, f.name)[0]
+                                         for f in dataclasses.fields(st.graph)})
+    gcfg = dataclasses.replace(_gn_config(cfg), use_cholesky_kernel=True, iterations=3)
+    before = C.launches
+    d = distributed_optimize(g, gcfg, nccl_mesh)
+    assert C.launches - before == 3
+    want = gn.optimize(g, dataclasses.replace(gcfg, early_exit_tol=0.0))
+    np.testing.assert_allclose(d.poses.cpu().numpy(), want.poses.cpu().numpy(), atol=1e-3)
+
+    oxy, ot, lxy, lt, packed = chip_smoke.assoc_world(64, 256, 4, cuda)
+    ov = torch.ones(64, dtype=torch.bool, device=cuda)
+    lv = torch.arange(256, device=cuda) < 200
+    for mode in ("first", "nearest"):
+        got = associate_sharded(oxy, ot, ov, lxy, lt, lv, 1.5, nccl_mesh, mode=mode)
+        want = associate(oxy, ot, ov, lxy, lt, lv, 1.5, mode=mode)
+        assert torch.equal(got[1], want[1]) and torch.equal(got[0][got[1]], want[0][want[1]])
+
+    fused, rep = fusion.fuse_sessions(st.graph, cfg=gn.GNConfig(iterations=3), gate=1.2,
+                                      mesh=nccl_mesh)
+    fused_w, rep_w = fusion.fuse_sessions(st.graph, cfg=gn.GNConfig(iterations=3,
+                                                                    early_exit_tol=0.0),
+                                          gate=1.2)
+    assert torch.equal(rep["labels"], rep_w["labels"])
+    np.testing.assert_allclose(fused.lm_xy.cpu().numpy(), fused_w.lm_xy.cpu().numpy(), atol=1e-3)

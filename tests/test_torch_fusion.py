@@ -10,8 +10,9 @@ values within 1e-5 (1e-4 after the joint GN), plus 3 float32 ulps of
 their magnitude (information-weighted merges: 5e-4, their float32
 rounding); map errors within
 `chip_smoke.METRIC_ATOL_M`. Each case also keeps its own assertion from
-tests/test_fusion.py, on the port's result. The mesh and chain-solver
-paths are refused by the port (`NotImplementedError`).
+tests/test_fusion.py, on the port's result. The chain-solver paths are
+refused by the port (`NotImplementedError`); the mesh path is held to the
+JAX package's by tests/test_torch_parallel.py.
 """
 import dataclasses
 import functools
@@ -379,8 +380,12 @@ def test_fusion_robust_trim_beats_plain_on_drift():
 
 def test_fuse_sessions_refuses_what_is_not_ported():
     """tests/test_fusion.py:448's refusal: an unknown solver is a
-    `ValueError` in both packages; the chain solvers and the mesh path,
-    which the port has not yet, are `NotImplementedError`, naming each."""
+    `ValueError` in both packages; the chain solvers, which the port has not
+    yet, are `NotImplementedError`, naming each. The mesh path, refused
+    until the multi-device tier was ported, runs: on a one-rank gloo mesh
+    its labels equal the dense dedup's and its joint GN (`distributed_
+    optimize`) the single-device fusion's within 5e-4
+    (tests/test_fusion.py:168's bound)."""
     stacked, _ = _sessions(2, "compat")
     cfg = gn.GNConfig(iterations=3)
     with pytest.raises(ValueError, match="unknown fusion solver"):
@@ -390,11 +395,19 @@ def test_fuse_sessions_refuses_what_is_not_ported():
     for solver in ("dd", "hier", "hier3"):
         with pytest.raises(NotImplementedError, match=solver):
             fusion.fuse_sessions(stacked, cfg=cfg, solver=solver, align=False)
-    with pytest.raises(NotImplementedError, match="mesh"):
-        fusion.fuse_sessions(stacked, cfg=cfg, mesh=object())
-    with pytest.raises(NotImplementedError, match="mesh"):
-        fusion.dedup_labels(stacked.lm_xy[0], stacked.lm_type[0],
-                            torch.ones(CAP.max_landmarks, dtype=torch.bool), 1.2, mesh=object())
+    from tpuslam_torch.parallel.mesh import initialize_distributed, make_slam_mesh
+    initialize_distributed("gloo")
+    mesh = make_slam_mesh(1, 1, device_type="cpu")
+    got, rep = fusion.fuse_sessions(stacked, cfg=cfg, mesh=mesh)
+    want, rep_w = fusion.fuse_sessions(stacked, cfg=cfg)
+    assert torch.equal(rep["labels"], rep_w["labels"])
+    assert int(got.n_landmarks) == int(want.n_landmarks)
+    torch.testing.assert_close(got.poses, want.poses, atol=5e-4, rtol=0)
+    torch.testing.assert_close(got.lm_xy, want.lm_xy, atol=5e-4, rtol=0)
+    valid = torch.ones(CAP.max_landmarks, dtype=torch.bool)
+    assert torch.equal(
+        fusion.dedup_labels(stacked.lm_xy[0], stacked.lm_type[0], valid, 1.2, mesh=mesh),
+        fusion.dedup_labels(stacked.lm_xy[0], stacked.lm_type[0], valid, 1.2))
 
 
 def test_session_obs_counts_and_stack_graphs_match_jax():

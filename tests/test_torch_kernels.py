@@ -281,21 +281,25 @@ def test_first_association_with_kernel_runs_dense(monkeypatch):
 
 @pytest.mark.parametrize("field,value", [
     ("use_ekf_fusion", True),
-    pytest.param("assoc_mesh", object(), id="assoc_mesh-value7")])
+    pytest.param("assoc_mesh", "one-rank mesh", id="assoc_mesh-value7")])
 def test_unported_config_raises(field, value):
-    """The mesh-sharded map is the one configuration the port refuses, by
-    name. The EKF fusion, refused until the service was ported, is read by
-    the service's `Slam` alone, as in the JAX package: `perform_keyframe`
-    takes the flag and gives what it gives without it."""
+    """Both were refused by name until their slices were ported. The EKF
+    fusion is read by the service's `Slam` alone, as in the JAX package,
+    and the mesh-sharded map (here on a one-rank gloo mesh) associates as
+    the dense map does: `perform_keyframe` gives what it gives without
+    either."""
     cap = GraphCapacity(8, 8, 32)
     cfg = SlamConfig(capacity=cap)
     args = (torch.tensor([[10.0, 0.0, 5.0, 1.0]] * 4), torch.ones(4, dtype=torch.bool),
             torch.zeros(3))
     if field == "assoc_mesh":
-        with pytest.raises(NotImplementedError, match=field):
-            perform_keyframe(initial_state(cap, "cpu"), *args, cfg, assoc_mesh=value)
-        return
-    st, out = perform_keyframe(initial_state(cap, "cpu"), *args, cfg.with_(**{field: value}))
+        from tpuslam_torch.parallel.mesh import initialize_distributed, make_slam_mesh
+        initialize_distributed("gloo")
+        st, out = perform_keyframe(initial_state(cap, "cpu"), *args, cfg,
+                                   assoc_mesh=make_slam_mesh(1, 1, device_type="cpu"))
+    else:
+        st, out = perform_keyframe(initial_state(cap, "cpu"), *args,
+                                   cfg.with_(**{field: value}))
     want_st, want_out = perform_keyframe(initial_state(cap, "cpu"), *args, cfg)
     assert int(st.graph.n_poses) == 1
     for a, b in ((st.graph.lm_xy, want_st.graph.lm_xy), (out.pose, want_out.pose),

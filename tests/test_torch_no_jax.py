@@ -2,7 +2,8 @@
 package: in a fresh interpreter with both `jax` and `tpuslam` made
 unimportable, every module of `tpuslam_torch` (the blocked pipeline, the
 batched sessions, the fusion, the live service with its IO stack, EKF,
-WGS84 projection and checkpoint, and the lidar front-end among them),
+WGS84 projection and checkpoint, the lidar front-end, the per-frame batched
+engine and the multi-device tier on `torch.distributed` among them),
 `chip_smoke` and the GPU tests `tests/test_torch_cuda.py` import."""
 import subprocess
 import sys
@@ -21,7 +22,14 @@ for mod in pkgutil.walk_packages(tpuslam_torch.__path__, "tpuslam_torch."):
     importlib.import_module(mod.name)
 from tpuslam_torch.frontend.blocked import run_pass_blocked, run_sequence_blocked
 from tpuslam_torch.frontend.blocked import run_sequences_blocked_batched
-from tpuslam_torch.parallel.batch import initial_states
+from tpuslam_torch.parallel.batch import initial_states, run_passes_batched, run_sequences_batched
+from tpuslam_torch.parallel import (
+    associate_sharded, distributed_gn_step, distributed_optimize, fuse_graphs,
+    initialize_distributed, make_chain_mesh, make_slam_mesh, multisession_optimize,
+    run_fleet_blocked,
+)
+from tpuslam_torch.parallel.collectives import all_gather, pmin, psum, shard
+from tpuslam_torch.parallel.mesh import free_port
 from tpuslam_torch.parallel.fusion import fuse_sessions
 from tpuslam_torch.parallel.multisession import stack_graphs
 from tpuslam_torch.core.slam import Slam

@@ -3,8 +3,9 @@ decoder and `attention.detect_cones`, and `tpuslam_torch.sim.vlp16_sim`)
 against the JAX package's, and tests/test_perception.py's cases on the
 port (all but the calibration-XML cases, whose loader is not ported).
 
-The JAX package draws its RANSAC triples with `jax.random`, the port with a
-`torch.Generator`; given the same triples (`ransac_idx`), RANSAC heights,
+Both packages draw the same RANSAC triples from a seed: the port computes
+`jax.random.randint`'s Threefry-2x32 in numpy. Given the same triples
+(`ransac_idx`, or the same seed), RANSAC heights,
 dense and grid labels, `grid_cell_overflow` counts and the cone counts and
 validity are exact, and heights and cone tuples within 1e-5 (float32 sums
 and transcendentals of two libraries).
@@ -231,19 +232,36 @@ def _jax_triples(n, cfg, seed=0):
                                                       (cfg.ransac_iterations, 3), 0, n)))
 
 
+@pytest.mark.parametrize("seed", [0, 1, 3, 7, 12345, 2 ** 31 - 1])
+def test_ransac_triples_equal_jax_random(seed):
+    """`ransac_triples` draws `jax.random.randint`'s values (the JAX
+    package's default PRNG): a change of that default shows up here."""
+    from tpuslam_torch.perception.attention import ransac_triples
+    for n in (1, 2, 3, 100, 2048, 4096, 28800, 65535, 65536, 65537):
+        for iters in (10, 64):
+            cfg = AttentionConfig(ransac_iterations=iters)
+            got = ransac_triples(n, cfg, seed, "cpu")
+            assert got.dtype == torch.int64
+            assert torch.equal(got, _jax_triples(n, cfg, seed)), (seed, n, iters)
+
+
 def test_full_loop_packets_to_cones():
-    """With the JAX package's seed-0 triples: on this scene 10 RANSAC
-    hypotheses are too few to find the ground reliably, and the JAX
-    package's own `detect_cones` misses the cone at (5, 1.5) with seeds 1,
-    3, 4 and 5 as the port does with its own seed-0 triples."""
+    """Packets -> points -> cones at the default seed, the port's own
+    triples, against the JAX package's `detect_cones` on the same points."""
     cones = np.array([[5.0, 1.5], [8.0, -1.0]])
     scfg = Vlp16SceneConfig(seed=5, points_per_cone=60)
     pts, _ = render_scene(cones, np.array([1, 2]), scfg)
-    clouds = [packet_to_points(p) for p in scene_to_packets(pts, scfg)]
+    clouds = [packet_to_points(p) for p in scene_to_packets(pts)]
     all_pts = np.vstack([c[0] for c in clouds if len(c[0])])
     acfg = AttentionConfig(sensor_height=scfg.sensor_height, ground_layer_z=-scfg.sensor_height,
                            inlier_found_threshold=200)
-    out, ok, _ = detect_cones(*_pad(all_pts), acfg, ransac_idx=_jax_triples(N_CAP, acfg))
+    p, v = _pad(all_pts)
+    out, ok, n = detect_cones(p, v, acfg)
+    want = [np.asarray(x) for x in jattention.detect_cones(
+        jnp.asarray(p.numpy()), jnp.asarray(v.numpy()), _jax_cfg(acfg))]
+    assert int(n) == int(want[2])
+    np.testing.assert_array_equal(ok.numpy(), want[1])
+    np.testing.assert_allclose(out.numpy(), want[0], atol=VALUE_ATOL, rtol=0)
     _, got_xy = _xy(out, ok)
     for cx, cy in cones:
         assert np.linalg.norm(got_xy - (cx, cy), axis=1).min() < 0.3, (cx, cy, got_xy)

@@ -11,7 +11,8 @@ reference) and with the port:
   skidpad lap through `Slam(use_ekf_fusion=True)`.
 - VLP16_REFERENCE: bench.py's two vlp16_frontend scenes through the JAX
   package's `detect_cones` with its seed-0 triples (which the constants
-  hold), and through the port's with the same triples.
+  hold), and through the port's at its default seed, whose `ransac_triples`
+  are the same.
 
 Tolerances: counts exact; the JAX numbers within 1e-6 of the constants
 (rounded to 6 places), the port's within METRIC_ATOL_M (ATEs, map error)
@@ -34,7 +35,7 @@ from tpuslam.runtime.config import SlamConfig as JCfg
 from tpuslam.runtime.service import SlamService as JService, scenario_to_rec as jscenario_to_rec
 from tpuslam.sim import SimConfig, acceleration, simulate, skidpad
 from tpuslam.sim.simulator import ate
-from tpuslam_torch.perception.attention import detect_cones
+from tpuslam_torch.perception.attention import detect_cones, ransac_triples
 
 JAX_ATOL = 1e-6
 
@@ -136,6 +137,6 @@ def test_vlp16_reference(name):
     cones, ok, n = jdetect(jnp.asarray(pts), jnp.asarray(valid), jcfg, seed=0)
     chip_smoke.check_cones(f"{name}: JAX", (torch.tensor(np.asarray(x)) for x in (cones, ok, n)),
                            want["cones"], atol=JAX_ATOL)
-    got = detect_cones(torch.tensor(pts), torch.tensor(valid), acfg,
-                       ransac_idx=torch.tensor(triples))
+    assert ransac_triples(len(pts), acfg, 0, "cpu").tolist() == want["triples"]
+    got = detect_cones(torch.tensor(pts), torch.tensor(valid), acfg)
     chip_smoke.check_cones(f"{name}: port", got, want["cones"])

@@ -140,11 +140,13 @@ def _edge_index(obs_pose, obs_lm, n_pose_rows: int, n_lm_rows: int):
 
 
 def landmark_edge_blocks(poses, lm_xy, obs_pose, obs_lm, obs_xy, w_l):
-    """Landmark-edge contribution summed over the given edges: returns
-    (h_diag_lm [P,3,3], w [P,3,L,2], hll [L,2,2], gp_lm [P,3], gl [L,2]),
-    each with the inputs' leading session axis if they have one; w[p, i, l,
-    j] is entry (3p+i, 2l+j) of the coupling W [3P, 2L]. The sessions'
-    sums are scattered into one buffer, each at its own row offset."""
+    """Landmark-edge contribution summed over the given edges, any slice of
+    the edge list: returns (h_diag_lm [P,3,3], w [P,3,L,2], hll [L,2,2],
+    gp_lm [P,3], gl [L,2]), each with the inputs' leading session axis if
+    they have one; w[p, i, l, j] is entry (3p+i, 2l+j) of the coupling W
+    [3P, 2L]. The sessions' sums are scattered into one buffer, each at its
+    own row offset. Sums over disjoint edge slices add up to the whole
+    list's: the distributed Schur reduction's building block."""
     lead = tuple(poses.shape[:-2])
     P, L = poses.shape[-2], lm_xy.shape[-2]
     op, ol = _edge_index(obs_pose, obs_lm, P, L)
@@ -304,19 +306,15 @@ def _check_precision(cfg: GNConfig, t: torch.Tensor):
                          "torch.backends.cuda.matmul.allow_tf32 = False")
 
 
-def gn_step(g: FactorGraph, cfg: GNConfig) -> FactorGraph:
-    """One Gauss-Newton iteration over the full graph, or over each graph of
-    a stacked batch [S] at full capacity (no host read)."""
-    _check_precision(cfg, g.poses)
+def solve_blocks(g: FactorGraph, cfg: GNConfig, blocks, b: int | None = None) -> FactorGraph:
+    """`g` moved by one GN update from its normal-equation blocks (h_diag,
+    h_off, w [P,3,L,2], hll, gp [P,3], gl; batched over a leading session
+    axis): gauged, the reduced pose system solved on its first `b` poses
+    (all when None), and the headings of the active poses wrapped."""
+    h_diag, h_off, w, hll, gp, gl = _apply_gauge_blocked(g, cfg, *blocks)
     lead = tuple(g.poses.shape[:-2])
-    P, E = g.poses.shape[-2], g.obs_pose.shape[-1]
-    n_poses, n_obs = (P, E) if lead else torch.stack([g.n_poses, g.n_obs]).tolist()
-    h_diag, h_off, w, hll, gp, gl = _apply_gauge_blocked(
-        g, cfg, *_assemble_blocked(g, cfg, n_obs))
-    # the gauged rows past n_poses are exact identity/zero, so solving on the
-    # leading bucket gives the full solve's update
-    L = w.shape[-2]
-    b = _bucket(n_poses, P, cfg.solve_bucket_step)
+    P, L = g.poses.shape[-2], w.shape[-2]
+    b = P if b is None else b
     wb = w[..., :b, :, :, :].reshape(*lead, 3 * b, L, 2)
     dp_b, dl = schur_solve_split(
         densify_hpp(h_diag[..., :b, :, :], h_off[..., :b, :, :]), wb[..., 0], wb[..., 1],
@@ -330,6 +328,18 @@ def gn_step(g: FactorGraph, cfg: GNConfig) -> FactorGraph:
     theta = torch.where(act, se2.wrap_angle(poses[..., 2]), poses[..., 2])
     poses = torch.cat([poses[..., :2], theta[..., None]], dim=-1)
     return dataclasses.replace(g, poses=poses, lm_xy=g.lm_xy + dl)
+
+
+def gn_step(g: FactorGraph, cfg: GNConfig) -> FactorGraph:
+    """One Gauss-Newton iteration over the full graph, or over each graph of
+    a stacked batch [S] at full capacity (no host read)."""
+    _check_precision(cfg, g.poses)
+    P, E = g.poses.shape[-2], g.obs_pose.shape[-1]
+    n_poses, n_obs = (P, E) if g.n_poses.dim() else torch.stack([g.n_poses, g.n_obs]).tolist()
+    # the gauged rows past n_poses are exact identity/zero, so solving on the
+    # leading bucket gives the full solve's update
+    return solve_blocks(g, cfg, _assemble_blocked(g, cfg, n_obs),
+                        _bucket(n_poses, P, cfg.solve_bucket_step))
 
 
 def _iterate_batched(g: FactorGraph, cfg: GNConfig, step, enable) -> FactorGraph:

@@ -78,9 +78,12 @@ on CUDA the GN's sums are atomics, so values after a GN may differ in the
 last bits from run to run. Association is 'first', 'nearest' or
 'mahalanobis', dense or, for the last two, through the association kernel
 (`use_pallas_association`), which then runs once per block over all its
-observations. `run_sequence_blocked` raises `ValueError` where the JAX
-package's does (`blocked_supported`), and `NotImplementedError` for
-`assoc_mesh`, which is not ported yet.
+observations, or, with `assoc_mesh`, against the landmark map sharded over
+the mesh's 'edges' axis (`parallel.map_blocks`), once per block too, with
+the index providers' localization semantics; frames the blocks leave to
+the per-frame path run without the mesh, as the JAX package's completion
+does. `run_sequence_blocked` raises `ValueError` where the JAX package's
+does (`blocked_supported`).
 """
 from __future__ import annotations
 
@@ -91,8 +94,8 @@ import torch
 from tpuslam_torch.backend import gauss_newton as gn
 from tpuslam_torch.frontend.keyframe import (
     KeyframeOutputs, _add_info, _body_xy, _check_supported, _first_index, _gate_cost,
-    _gn_config, _obs_information, _periodic_due, _pose_refine_rows, _prefix_argmin_exclusive,
-    _prior_info, _provider_associate, _publish_refine, _use_assoc_kernel, periodic_gn,
+    _gn_config, _indexed_assoc, _obs_information, _periodic_due, _pose_refine_rows,
+    _prefix_argmin_exclusive, _prior_info, _provider_associate, _publish_refine, periodic_gn,
 )
 from tpuslam_torch.frontend.pipeline import run_sequence
 from tpuslam_torch.frontend.state import (
@@ -297,7 +300,7 @@ def _inblock_duplicates(glob_k, otype_k, frame_of, cand, snap_match, cost_snap,
 
 
 def _mapping_block(state: SlamState, obs, valid, poses, okp, boot_ok, overflow,
-                   cfg: SlamConfig):
+                   cfg: SlamConfig, assoc_mesh=None):
     """Mapping-mode block (reference src/slam.cpp:552-635) of each session of
     a stacked state [S], without GN: on a closure, frames up to the closure
     frame commit and the map freezes; the caller runs the closure GN. A
@@ -342,10 +345,10 @@ def _mapping_block(state: SlamState, obs, valid, poses, okp, boot_ok, overflow,
     # phase A: association against the block-start (post-boot) map; the
     # boot landmark's zero information row gives it the per-frame path's
     # scaled-Euclidean bootstrap cost
-    if _use_assoc_kernel(cfg):
+    if _indexed_assoc(cfg, assoc_mesh):
         j_snap, snap_match, cost = _provider_associate(
             glob_k, obs_k[..., 3], valid_k, g.lm_xy, g.lm_type, g.n_landmarks,
-            state.lm_info_xy, cfg)
+            state.lm_info_xy, cfg, assoc_mesh)
         gate = cfg.mahalanobis_gate if cfg.association == "mahalanobis" else thresh2
         cost_snap = torch.where(snap_match, cost, _INF)
     else:
@@ -490,7 +493,8 @@ def _mapping_block(state: SlamState, obs, valid, poses, okp, boot_ok, overflow,
     return new_state, outputs, aux
 
 
-def _loc_block(state: SlamState, obs, valid, poses, okp, overflow, cfg: SlamConfig):
+def _loc_block(state: SlamState, obs, valid, poses, okp, overflow, cfg: SlamConfig,
+               assoc_mesh=None):
     """Localization-mode block of each session of a stacked state [S] against
     its frozen map (reference src/slam.cpp:340-414); the information is
     frozen too, so Mahalanobis gating is exact at any block size. A session
@@ -509,9 +513,9 @@ def _loc_block(state: SlamState, obs, valid, poses, okp, overflow, cfg: SlamConf
     glob_k = _block_glob(obs, poses, cfg)
     obs_k = obs.reshape(S, BN, 4)
     vloc_k = (valid & ran[..., None]).reshape(S, BN)
-    if _use_assoc_kernel(cfg):
+    if _indexed_assoc(cfg, assoc_mesh):
         j, matched, _ = _provider_associate(glob_k, obs_k[..., 3], vloc_k, g.lm_xy, g.lm_type,
-                                            g.n_landmarks, state.lm_info_xy, cfg)
+                                            g.n_landmarks, state.lm_info_xy, cfg, assoc_mesh)
     else:
         diff = glob_k[..., :, None, :] - g.lm_xy[..., None, :, :]
         cost, gate = _gate_cost(diff, torch.sum(diff * diff, dim=-1), state.lm_info_xy, cfg)
@@ -738,11 +742,12 @@ def _compacted(obs_seq, valid_seq, compact_obs: int):
 
 
 def blocked_core(state: SlamState, obs_seq, valid_seq, pose_seq, cfg: SlamConfig,
-                 block: int = 8, compact_obs: int = 32, frozen: bool | None = None):
+                 block: int = 8, compact_obs: int = 32, frozen: bool | None = None,
+                 assoc_mesh=None):
     """Mapping blocks, the closure GN and localization blocks over inputs
     already padded to a multiple of `block`: `blocked_core_batched` for one
     session. `frozen` is whether the map was already frozen (read from the
-    state when None).
+    state when None); `assoc_mesh` as `blocked_core_batched`'s.
 
     Returns (state, outputs [done_upto], done_upto): frames from done_upto on
     were not processed (a fallback fired) and must be finished by the
@@ -750,7 +755,7 @@ def blocked_core(state: SlamState, obs_seq, valid_seq, pose_seq, cfg: SlamConfig
     """
     states, outs, done = blocked_core_batched(
         map_state(lambda v: v[None], state), obs_seq[None], valid_seq[None], pose_seq[None],
-        cfg, block, compact_obs, None if frozen is None else [frozen])
+        cfg, block, compact_obs, None if frozen is None else [frozen], assoc_mesh)
     d = done[0]
     return session_state(states, 0), (_rows(_take(outs, 0), 0, d) if d else None), d
 
@@ -765,10 +770,13 @@ def _hold(held, new: SlamState, old: SlamState) -> SlamState:
 
 
 def blocked_core_batched(states: SlamState, obs_seq, valid_seq, pose_seq, cfg: SlamConfig,
-                         block: int = 8, compact_obs: int = 32, frozen=None):
+                         block: int = 8, compact_obs: int = 32, frozen=None, assoc_mesh=None):
     """`blocked_core` for S independent sessions at once: a stacked state
     [S] and inputs [S, Tp, ...] padded to a multiple of `block`. `frozen`
     is each session's map-frozen flag (read from the states when None).
+    With `assoc_mesh`, every block's association runs against the maps
+    sharded over the mesh's 'edges' axis (each session's landmark capacity
+    a multiple of the axis size).
 
     The mapping blocks run over all sessions together, one block function
     call for the S sessions, and read the [S] (fallback, closure, closure
@@ -813,7 +821,7 @@ def blocked_core_batched(states: SlamState, obs_seq, valid_seq, pose_seq, cfg: S
         live = torch.tensor(mapping, device=dev)
         ns, outs, aux = _mapping_block(states, obs_c[:, f], valid_c[:, f], pose_seq[:, f],
                                        okp_all[:, f] & live[:, None], first_valid[:, f],
-                                       overflow[:, f], cfg)
+                                       overflow[:, f], cfg, assoc_mesh)
         fires = _periodic_fires(states.keyframe_count, aux["ins"], aux["n_lm_series"],
                                 cfg) if periodic else None
         (fb, closed, kcf), fires = _read_flags(
@@ -884,7 +892,7 @@ def blocked_core_batched(states: SlamState, obs_seq, valid_seq, pose_seq, cfg: S
         active = torch.tensor(loc, device=dev)
         okp = okp_all[:, f] & (ib * B + fidx > kc_dev[:, None]) & active[:, None]
         ns, outs, aux = _loc_block(states, obs_c[:, f], valid_c[:, f], pose_seq[:, f], okp,
-                                   overflow[:, f], cfg)
+                                   overflow[:, f], cfg, assoc_mesh)
         fires = _periodic_fires(states.keyframe_count, okp,
                                 ns.graph.n_landmarks[:, None].expand(S, B),
                                 cfg) if periodic else None
@@ -964,14 +972,14 @@ def run_sequence_blocked(state: SlamState, obs_seq, valid_seq, pose_seq, cfg: Sl
                          block: int = 8, assoc_mesh=None):
     """Process T keyframes through the blocked pipeline. Same signature and
     results as `run_sequence`; frames the blocks could not commit are
-    finished by the per-frame path."""
+    finished by the per-frame path (without the mesh)."""
     if not blocked_supported(cfg, block):
         raise ValueError(
             "run_sequence_blocked: unsupported config (needs association in "
             "('first','nearest','mahalanobis'), no kernel association with "
             "'first', vectorized mapping, periodic_gn_every a multiple of the "
             "block size, or dividing it with a fixed-lag window): use run_sequence")
-    _check_supported(cfg, assoc_mesh)
+    _check_supported(cfg)
     T = obs_seq.shape[0]
     # an edge capacity below one block's rows cannot take a block's edge
     # append: the per-frame path is the whole pass
@@ -980,7 +988,7 @@ def run_sequence_blocked(state: SlamState, obs_seq, valid_seq, pose_seq, cfg: Sl
     obs_p, valid_p, pose_p = _pad_inputs(obs_seq, valid_seq, pose_seq, cfg, block)
     nc, frozen = _pick_compact(valid_p, state)
     state, outs, done_upto = blocked_core(state, obs_p, valid_p, pose_p, cfg, block,
-                                          compact_obs=nc, frozen=frozen[0])
+                                          compact_obs=nc, frozen=frozen[0], assoc_mesh=assoc_mesh)
     if done_upto >= T:
         return state, _rows(outs, 0, T)
     state, rest = run_sequence(state, obs_seq[done_upto:], valid_seq[done_upto:],
@@ -1009,7 +1017,7 @@ def run_sequences_blocked_batched(states: SlamState, obs_seq, valid_seq, pose_se
     if not blocked_supported(cfg, block):
         raise ValueError("run_sequences_blocked_batched: unsupported config, see "
                          "run_sequence_blocked")
-    _check_supported(cfg, None)
+    _check_supported(cfg)
     S, T = obs_seq.shape[:2]
     if T == 0 or cfg.capacity.max_obs < block * min(obs_seq.shape[2], 32) + 1:
         # an edge capacity below one block's rows: the per-frame path is the

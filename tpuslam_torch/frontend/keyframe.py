@@ -19,9 +19,16 @@ refines, fixed-lag or full-batch periodic GN), with 'first', 'nearest' or
 association kernel (`use_pallas_association`; 'first' needs index order
 and stays dense, as in the JAX package), and the scan-form mapping step
 (`vectorized_mapping=False`). `use_ekf_fusion` is read by the service's
-`core.slam.Slam` alone, as in the JAX package. `perform_keyframe` raises
-`NotImplementedError` for the mesh-sharded map (`assoc_mesh`), which is
-not ported yet.
+`core.slam.Slam` alone, as in the JAX package.
+
+With `assoc_mesh` (a `DeviceMesh` with an 'edges' axis) the association
+runs against the landmark map sharded over that axis
+(`parallel.map_blocks.associate_sharded`), every policy, 'first' too; like
+the kernel it is an index provider, so localization takes its semantics
+(type equality without the reference's signed compare), as in the JAX
+package. `defer_gn=True` runs no full GN: the keyframe returns whether it
+wants the closure GN and a full-batch periodic GN, for the per-frame
+batched engine (`parallel.batch`) to run after the frame.
 """
 from __future__ import annotations
 
@@ -68,11 +75,9 @@ def _gn_config(cfg: SlamConfig) -> gn.GNConfig:
                        early_exit_tol=cfg.gn_early_exit_tol)
 
 
-def _check_supported(cfg: SlamConfig, assoc_mesh) -> None:
-    """Refuse the one configuration this port does not run, by name, and,
-    as the JAX package does, the two combinations that have no meaning."""
-    if assoc_mesh is not None:
-        raise NotImplementedError(f"assoc_mesh={assoc_mesh!r} is not ported to tpuslam_torch yet")
+def _check_supported(cfg: SlamConfig) -> None:
+    """Refuse, as the JAX package does, the two combinations that have no
+    meaning."""
     if not cfg.vectorized_mapping:
         if cfg.association == "mahalanobis":
             raise ValueError("mahalanobis association requires vectorized_mapping=True "
@@ -153,17 +158,26 @@ def _use_assoc_kernel(cfg: SlamConfig) -> bool:
     return cfg.use_pallas_association and cfg.association != "first"
 
 
-def _associate_shared(state: SlamState, obs, obs_valid, pose, cfg: SlamConfig):
+def _indexed_assoc(cfg: SlamConfig, assoc_mesh=None) -> bool:
+    """True when the association payload is (match_idx, matched) from an
+    index provider (the kernel, or the mesh-sharded map) instead of the
+    dense (N x M) cost matrix."""
+    return assoc_mesh is not None or _use_assoc_kernel(cfg)
+
+
+def _associate_shared(state: SlamState, obs, obs_valid, pose, cfg: SlamConfig,
+                      assoc_mesh=None):
     """Observations to the global frame, body-frame measurements, and the
-    association payload: the dense (N x M) gating cost and its gate, or the
-    kernel's (match_idx, matched) without the cost matrix."""
+    association payload: the dense (N x M) gating cost and its gate, or an
+    index provider's (match_idx, matched) without the cost matrix."""
     glob_all = cone_to_global(pose, obs[:, 0], obs[:, 1], obs[:, 2],
                               cfg.lidar_to_cog, cfg.reference_compat)
     body_all = _body_xy(obs, cfg)
     g = state.graph
-    if _use_assoc_kernel(cfg):
+    if _indexed_assoc(cfg, assoc_mesh):
         j, matched, _ = _provider_associate(glob_all, obs[:, 3], obs_valid, g.lm_xy,
-                                            g.lm_type, g.n_landmarks, state.lm_info_xy, cfg)
+                                            g.lm_type, g.n_landmarks, state.lm_info_xy, cfg,
+                                            assoc_mesh)
         return glob_all, body_all, j, matched
     diff = glob_all[:, None, :] - g.lm_xy[None, :, :]
     cost, gate = _gate_cost(diff, torch.sum(diff * diff, dim=-1), state.lm_info_xy, cfg)
@@ -181,14 +195,29 @@ def _mahal_packed(lm_info, cfg: SlamConfig):
 
 
 def _provider_associate(glob, otype, valid, lm_xy, lm_type, n_landmarks, lm_info,
-                        cfg: SlamConfig):
+                        cfg: SlamConfig, assoc_mesh=None):
     """(match_idx, matched, cost) for a flat observation batch, or one per
-    session with a leading session axis on every argument, from the
-    association kernel, Euclidean or Mahalanobis (against `lm_info`), which
-    reads the float type column `otype` as int32 and masks invalid
-    observations and landmarks past `n_landmarks` itself: neither ever
-    matches, as the types -2 and -1 of the JAX package's
+    session with a leading session axis on every argument. With
+    `assoc_mesh`, from the landmark map sharded over its 'edges' axis
+    (`parallel.map_blocks.associate_sharded`, in `cfg.association`'s
+    policy). Else from the association kernel, Euclidean or Mahalanobis
+    (against `lm_info`), which reads the float type column `otype` as int32
+    and masks invalid observations and landmarks past `n_landmarks` itself:
+    neither ever matches, as the types -2 and -1 of the JAX package's
     `_provider_associate` do."""
+    if assoc_mesh is not None:
+        from tpuslam_torch.parallel.map_blocks import associate_sharded
+        lm_valid = torch.arange(lm_xy.shape[-2], device=lm_xy.device) < n_landmarks[..., None]
+        otype = otype.to(torch.int32)
+        if cfg.association == "mahalanobis":
+            p = _mahal_packed(lm_info, cfg)
+            a, b, c = p[..., 0], p[..., 1], p[..., 2]
+            cov_inv = torch.stack([torch.stack([a, b], -1), torch.stack([b, c], -1)], -2)
+            return associate_sharded(glob, otype, valid, lm_xy, lm_type, lm_valid,
+                                     cfg.mahalanobis_gate, assoc_mesh, mode="mahalanobis",
+                                     lm_cov_inv=cov_inv)
+        return associate_sharded(glob, otype, valid, lm_xy, lm_type, lm_valid,
+                                 cfg.same_cone_threshold, assoc_mesh, mode=cfg.association)
     if cfg.association == "mahalanobis":
         return associate_kernel(glob.contiguous(), otype, lm_xy, lm_type, cfg.mahalanobis_gate,
                                 _mahal_packed(lm_info, cfg), mahalanobis=True,
@@ -570,12 +599,18 @@ def _prior_info(cfg: SlamConfig):
 
 
 def perform_keyframe(state: SlamState, obs, obs_valid, pose, cfg: SlamConfig,
-                     assoc_mesh=None):
+                     defer_gn: bool = False, assoc_mesh=None):
     """Full keyframe update. obs [N,4] = (az_deg, zen_deg, dist, type),
     obs_valid [N] bool, pose [3] (odometry, heading-corrected), all on one
     device. Returns (new_state, KeyframeOutputs); `state` is not modified.
+
+    `defer_gn=True` runs neither the closure GN nor a full-batch periodic GN
+    (a fixed-lag window GN still runs in the keyframe) and returns
+    (new_state, outputs, closure wanted, periodic GN wanted), the last two
+    0-dim bools: the outputs are then those before those GNs. `assoc_mesh`
+    routes the association through the mesh-sharded map.
     """
-    _check_supported(cfg, assoc_mesh)
+    _check_supported(cfg)
     dev = obs.device
     false = torch.zeros((), dtype=torch.bool, device=dev)
     # GPS outlier guard (reference src/slam.cpp:300-303)
@@ -589,6 +624,7 @@ def perform_keyframe(state: SlamState, obs, obs_valid, pose, cfg: SlamConfig,
          _periodic_due(state.keyframe_count + 1, state.graph.n_landmarks, cfg)]).tolist()
 
     out_pose, closed, send = pose, false, false
+    want_periodic = False
     if run:
         g = state.graph
         prev = g.poses[torch.clamp(g.n_poses - 1, min=0).reshape(1).long()][0]
@@ -596,8 +632,8 @@ def perform_keyframe(state: SlamState, obs, obs_valid, pose, cfg: SlamConfig,
         g = G.add_pose(g, pose, odo, prior_info=_prior_info(cfg))
         pose_idx = g.n_poses - 1
         state = dataclasses.replace(state, graph=g, keyframe_count=state.keyframe_count + 1)
-        pre = _associate_shared(state, obs, obs_valid, pose, cfg)
-        indexed = _use_assoc_kernel(cfg)
+        pre = _associate_shared(state, obs, obs_valid, pose, cfg, assoc_mesh)
+        indexed = _indexed_assoc(cfg, assoc_mesh)
         if frozen:
             # the reference needs more than one cone to localize (src/slam.cpp:332)
             if enough:
@@ -613,7 +649,7 @@ def perform_keyframe(state: SlamState, obs, obs_valid, pose, cfg: SlamConfig,
             do_close, fire = torch.stack(
                 [closed, _periodic_due(state.keyframe_count, state.graph.n_landmarks,
                                        cfg)]).tolist()
-            if do_close:
+            if do_close and not defer_gn:
                 # one-shot closure: full GN re-optimization, then the map freezes
                 state = dataclasses.replace(
                     state, graph=gn.optimize(state.graph, _gn_config(cfg)))
@@ -625,7 +661,9 @@ def perform_keyframe(state: SlamState, obs, obs_valid, pose, cfg: SlamConfig,
                 lm_idx, matched, body = pub_rows
                 ref = _publish_refine(pose, state.graph.lm_xy[lm_idx], matched, body, cfg)
                 out_pose = torch.where(pose_idx >= cfg.periodic_gn_every, ref, pose)
-        if fire:
+        if fire and defer_gn and cfg.periodic_gn_window == 0:
+            want_periodic = True
+        elif fire:
             state = dataclasses.replace(state, graph=periodic_gn(state.graph, cfg))
         if cfg.use_gps_prior and not cfg.mapping_publish_refine:
             # mapping mode publishes the graph's latest pose (refreshed by the
@@ -637,4 +675,7 @@ def perform_keyframe(state: SlamState, obs, obs_valid, pose, cfg: SlamConfig,
     outputs = KeyframeOutputs(pose=out_pose, cone_azimuth=az, cone_distance=dist,
                               cone_type=ctype, send=send, loop_closed=closed,
                               n_landmarks=state.graph.n_landmarks)
+    if defer_gn:
+        # `loop_closed` then says the closure GN is wanted, not that it ran
+        return state, outputs, closed, torch.tensor(want_periodic, device=dev)
     return state, outputs

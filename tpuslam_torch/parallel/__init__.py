@@ -1,0 +1,12 @@
+from tpuslam_torch.parallel.mesh import (  # noqa: F401
+    make_chain_mesh, make_slam_mesh, initialize_distributed,
+)
+from tpuslam_torch.parallel.distributed import (  # noqa: F401
+    distributed_gn_step, distributed_optimize,
+)
+from tpuslam_torch.parallel.multisession import multisession_optimize, stack_graphs  # noqa: F401
+from tpuslam_torch.parallel.fleet import run_fleet_blocked  # noqa: F401
+from tpuslam_torch.parallel.map_blocks import associate_sharded  # noqa: F401
+from tpuslam_torch.parallel.fusion import (  # noqa: F401
+    align_to_anchor, fuse_graphs, fuse_sessions,
+)

@@ -1,5 +1,5 @@
 """Cross-session map fusion: S independent sessions -> one global map
-(counterpart of `tpuslam.parallel.fusion`, on one device).
+(counterpart of `tpuslam.parallel.fusion`).
 
 1. **Alignment** (`align_to_anchor`, `align_consensus_round`): each
    session's SE(2) registration onto the anchor session's landmarks (or
@@ -16,12 +16,17 @@
    means; every observation edge is remapped into the merged map.
 3. **Joint optimization**: `gauss_newton.optimize` on the fused graph.
 
+With a mesh (`mesh`, a `DeviceMesh` with an 'edges' axis) the dedup is
+landmark-sharded: each rank computes the adjacency rows of its block of the
+concatenated landmark axis, and every propagation round gathers the labels
+once; `fuse_sessions` then runs the joint GN as the edge-sharded
+`distributed_optimize`.
+
 The merge sums are `index_add_` scatters; on CUDA they are atomics, so the
 fused positions may differ from the CPU's in the last bits. Labels,
 landmark and merge counts are integer propagation and exact on both. The
-mesh-sharded dedup, `distributed_optimize` and the chain solvers ('dd',
-'hier', 'hier3') are not ported yet: `fuse_sessions` refuses them with
-`NotImplementedError`.
+chain solvers ('dd', 'hier', 'hier3') are not ported yet: `fuse_sessions`
+refuses them with `NotImplementedError`.
 """
 from __future__ import annotations
 
@@ -31,6 +36,8 @@ import torch
 
 from tpuslam_torch.backend import gauss_newton as gn
 from tpuslam_torch.backend.graph import FactorGraph, GraphCapacity, empty_graph
+from tpuslam_torch.parallel.collectives import all_gather, shard
+from tpuslam_torch.parallel.distributed import distributed_optimize
 
 __all__ = ["estimate_se2", "transform_graph", "align_to_anchor", "align_consensus_round",
            "dedup_labels", "fuse_graphs", "fuse_sessions", "fusion_report"]
@@ -187,30 +194,33 @@ def align_consensus_round(stacked: FactorGraph, gate: float, iters: int = 8,
 # Landmark dedup + merge
 # ---------------------------------------------------------------------------
 
-def _dedup_labels_dense(all_xy, all_type, all_valid, gate2, iters: int):
-    """Min-label connected components over the type-gated radius graph."""
-    sl = all_xy.shape[0]
-    diff = all_xy[:, None, :] - all_xy[None, :, :]
-    d2 = torch.sum(diff * diff, dim=-1)
-    adj = ((d2 < gate2) & (all_type[:, None] == all_type[None, :])
-           & all_valid[:, None] & all_valid[None, :])
-    labels = torch.where(all_valid, torch.arange(sl, dtype=_I32, device=all_xy.device), sl)
-    for _ in range(iters):
-        neigh = torch.where(adj, labels[None, :], sl)
-        labels = torch.minimum(labels, torch.min(neigh, dim=1).values)
-    return labels
-
-
 def dedup_labels(all_xy, all_type, all_valid, gate, mesh=None, axis: str = "edges",
                  iters: int = 8):
     """Component label per landmark slot (the smallest index in its
-    component); invalid slots get label SL. The landmark-sharded form
-    (`mesh`) is not ported yet."""
-    if mesh is not None:
-        raise NotImplementedError("dedup_labels(mesh=...): the landmark-sharded dedup is not "
-                                  "ported to tpuslam_torch yet")
+    component, by min-label propagation over the type-gated radius graph);
+    invalid slots get label SL. With `mesh`, each rank holds its block of
+    adjacency rows [SL / n, SL] over `mesh[axis]` (SL a multiple of its
+    size), and each round's labels of the block are gathered over `axis`,
+    so every rank holds all of them."""
     gate2 = torch.tensor(gate, dtype=all_xy.dtype, device=all_xy.device) ** 2
-    return _dedup_labels_dense(all_xy, all_type, all_valid, gate2, iters)
+    sl = all_xy.shape[0]
+    rows = slice(None)
+    if mesh is not None:
+        i, n = shard(mesh, axis)
+        if sl % n:
+            raise ValueError(f"{sl} landmark slots do not divide over {n} '{axis}' shards")
+        rows = slice(i * (sl // n), (i + 1) * (sl // n))
+    diff = all_xy[rows, None, :] - all_xy[None, :, :]
+    d2 = torch.sum(diff * diff, dim=-1)
+    adj = ((d2 < gate2) & (all_type[rows, None] == all_type[None, :])
+           & all_valid[rows, None] & all_valid[None, :])
+    labels = torch.where(all_valid, torch.arange(sl, dtype=_I32, device=all_xy.device), sl)
+    for _ in range(iters):
+        neigh = torch.where(adj, labels[None, :], sl)
+        labels = torch.minimum(labels[rows], torch.min(neigh, dim=1).values)
+        if mesh is not None:
+            labels = all_gather(labels, mesh, axis)
+    return labels
 
 
 def _session_obs_counts(stacked: FactorGraph):
@@ -377,15 +387,12 @@ def fuse_sessions(stacked: FactorGraph, cfg: gn.GNConfig | None = None, gate: fl
     on the fused graph. Returns (fused graph, report dict) with the
     `fuse_graphs` report, `tforms`, `n_align_matched` and `solver`.
 
-    Raises `ValueError` for an unknown solver, and `NotImplementedError`
-    for `mesh` (the landmark-sharded dedup and `distributed_optimize`) and
-    for the chain solvers 'dd', 'hier' and 'hier3', which are not ported
-    yet."""
+    With `mesh` the dedup is landmark-sharded over its 'edges' axis and the
+    joint GN is `distributed_optimize` over it (solver 'auto'). Raises
+    `ValueError` for an unknown solver, and `NotImplementedError` for the
+    chain solvers 'dd', 'hier' and 'hier3', which are not ported yet."""
     if solver not in ("auto", "dd", "hier", "hier3"):
         raise ValueError(f"unknown fusion solver {solver!r} (auto | dd | hier | hier3)")
-    if mesh is not None:
-        raise NotImplementedError("fuse_sessions(mesh=...): the landmark-sharded dedup and "
-                                  "distributed_optimize are not ported to tpuslam_torch yet")
     if cfg is not None and solver != "auto":
         raise NotImplementedError(f"fuse_sessions(solver={solver!r}): the chain solvers are "
                                   "not ported to tpuslam_torch yet")
@@ -410,8 +417,11 @@ def fuse_sessions(stacked: FactorGraph, cfg: gn.GNConfig | None = None, gate: fl
     else:
         tforms = torch.zeros((s, 3), dtype=stacked.poses.dtype, device=stacked.poses.device)
         n_matched = torch.zeros(s, dtype=_I32, device=stacked.poses.device)
-    fused, report = fuse_graphs(stacked, gate, dedup_iters=dedup_iters, lm_info=lm_info)
+    fused, report = fuse_graphs(stacked, gate, mesh=mesh, dedup_iters=dedup_iters,
+                                lm_info=lm_info)
     report = dict(report, tforms=tforms, n_align_matched=n_matched, solver=solver)
-    if cfg is not None:
+    if cfg is not None and mesh is not None:
+        fused = distributed_optimize(fused, cfg, mesh)
+    elif cfg is not None:
         fused = gn.optimize(fused, cfg)
     return fused, report

@@ -21,11 +21,10 @@ the JAX package:
   `scatter_reduce("amax")` for the radius (an empty segment is -inf, as
   `jax.ops.segment_max` gives).
 
-The RANSAC triples come from a `torch.Generator` seeded with `seed`, drawn
-on the host and moved to the device, so a CPU and a GPU run fit the same
-hypotheses. `jax.random` gives other numbers from the same seed, so
-`detect_cones` also takes the triples (`ransac_idx`): the tests and
-`chip_smoke.py` hand both packages the same ones. On the card the sums of
+The RANSAC triples are `jax.random.randint`'s from the same seed, the
+Threefry-2x32 hash computed in numpy on the host and moved to the device,
+so a CPU run, a GPU run and the JAX package fit the same hypotheses;
+`detect_cones` also takes the caller's triples (`ransac_idx`). On the card the sums of
 `index_add_` are atomics (centroids and cone tuples within a tolerance of
 the CPU run; counts and labels exact), and a division by a constant divides
 by a 0-dim tensor on the device: CUDA computes `x / python_float` as a
@@ -36,6 +35,7 @@ from __future__ import annotations
 import math
 from dataclasses import dataclass
 
+import numpy as np
 import torch
 
 from tpuslam_torch.geometry.spherical import lane_uniform
@@ -74,11 +74,53 @@ class AttentionConfig:
     host_prefilter: bool = True        # ROI-filter on host before device pad
 
 
+_THREEFRY_ROTATIONS = ((13, 15, 26, 6), (17, 29, 16, 24))
+
+
+def _rotl32(x, d: int):
+    return (x << np.uint32(d)) | (x >> np.uint32(32 - d))
+
+
+def _threefry2x32(k1, k2, x1, x2):
+    """The Threefry-2x32 hash (20 rounds) of the counter pairs (x1, x2) under
+    the key (k1, k2), all numpy uint32 with wrapping arithmetic: what
+    `jax.random`'s default PRNG computes."""
+    ks = (np.uint32(k1), np.uint32(k2), np.uint32(k1) ^ np.uint32(k2) ^ np.uint32(0x1BD11BDA))
+    x = [x1 + ks[0], x2 + ks[1]]
+    for i in range(5):
+        for r in _THREEFRY_ROTATIONS[i % 2]:
+            x[0] = x[0] + x[1]
+            x[1] = x[0] ^ _rotl32(x[1], r)
+        x = [x[0] + ks[(i + 1) % 3], x[1] + ks[(i + 2) % 3] + np.uint32(i + 1)]
+    return x
+
+
+def _random_bits32(key, size: int):
+    """`jax.random.bits(key, (size,))` for uint32 under the partitionable
+    Threefry (the counters are the flat indices, high word then low)."""
+    lo = np.arange(size, dtype=np.uint32)
+    b1, b2 = _threefry2x32(key[0], key[1], np.zeros(size, np.uint32), lo)
+    return b1 ^ b2
+
+
 def ransac_triples(n: int, cfg: AttentionConfig, seed: int, device) -> torch.Tensor:
-    """[ransac_iterations, 3] point indices in [0, n), drawn on the host from
-    a `torch.Generator` seeded with `seed`, on `device`."""
-    gen = torch.Generator().manual_seed(seed)
-    return torch.randint(0, n, (cfg.ransac_iterations, 3), generator=gen).to(device)
+    """[ransac_iterations, 3] point indices in [0, n) on `device`: exactly
+    `jax.random.randint(jax.random.PRNGKey(seed), (iters, 3), 0, n)`, drawn
+    on the host in numpy. The key is (seed >> 32, seed & 0xffffffff); it is
+    split in two (fold-like counters 0 and 1), each half gives 32 random bits
+    per value, and the 64 bits are reduced modulo n as `randint` does, its
+    2^32 mod n multiplier squared with uint32 wrap."""
+    shape = (cfg.ransac_iterations, 3)
+    size = shape[0] * shape[1]
+    with np.errstate(over="ignore"):
+        s1, s2 = _threefry2x32(np.uint32((seed >> 32) & 0xFFFFFFFF), np.uint32(seed & 0xFFFFFFFF),
+                               np.zeros(2, np.uint32), np.arange(2, dtype=np.uint32))
+        hi, lo = (_random_bits32((s1[i], s2[i]), size) for i in (0, 1))
+        span = np.uint32(max(n, 1))
+        mult = np.uint32(2 ** 16) % span
+        mult = (mult * mult) % span
+        off = ((hi % span) * mult + (lo % span)) % span
+    return torch.from_numpy(off.astype(np.int64).reshape(shape)).to(device)
 
 
 def _const(x: torch.Tensor, v: float) -> torch.Tensor:
