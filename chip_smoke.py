@@ -67,7 +67,11 @@ Phases, in order; the first that fails ends the run with exit code 1:
   5. closure solve — `gauss_newton.optimize` on the graph the closure GN
                solves, through the Cholesky kernel and through
                `torch.linalg.cholesky_ex`, and the kernel's factor of the
-               solve's ill-conditioned matrix held to a float64 factor;
+               solve's ill-conditioned matrix held to a float64 factor; the
+               same solve under `GNConfig.matmul_precision` 'high' (TF32)
+               and 'default' (bf16), each one's deviation from 'highest'
+               printed ('high' within GN_PRECISION_RTOL), TF32 off again
+               after each;
   6. timing  — frames/s of the per-frame and blocked laps (compat,
                'nearest' and the improved mode), their kernel launches and
                device-to-host reads per keyframe and device-busy share; one
@@ -98,7 +102,20 @@ Phases, in order; the first that fails ends the run with exit code 1:
                the lap without it; then the same mesh paths in a spawned
                world of GLOO_RANKS gloo ranks on cuda:0, held to the
                one-rank results; after phase 6, as its kernel
-               rows need exact profiler counts.
+               rows need exact profiler counts. Beside the vectorized step,
+               the scan-form mapping step of the per-frame batched engine
+               (all sessions stepped together) on the first
+               PARALLEL_SCAN_FRAMES frames: its launches per frame, held
+               under SCAN_LAUNCHES_PER_FRAME.
+  chain    — the pose-chain solvers (replicated, 'dd', resident, 'hier',
+               'hier3') on bench_scaling.py's chain graph and on the
+               fusion's joint graph (n = 9216), and `fuse_sessions`' chain
+               solvers: each on a one-rank NCCL chain mesh (timed, its
+               payload per iteration counted against `comm_model`), then in
+               a spawned world of CHAIN_RANKS gloo ranks on cuda:0; each
+               held to the single-device `gauss_newton.optimize` within the
+               JAX tests' bounds (CHAIN_ATOL), no kernel launched (the
+               solvers factor with `cholesky_ex`, as the JAX package's).
 It prints a `{"kernels": [...]}` line, the card's name and power limit as
 nvidia-smi gives them, and last `{"ok": true, "device": {...}}`. Without a
 CUDA device it fails before any phase. It imports no JAX.
@@ -350,13 +367,38 @@ GLOO_RANKS, GLOO_TIMEOUT_S = 2, 300.0
 # the per-frame batched engine: every session is held to the blocked batched
 # run, and every PARALLEL_SINGLE_EVERY-th also to its own per-frame run
 PARALLEL_SINGLE_EVERY = 8
-# the cost of the scan-form mapping step's per-session loop in the per-frame
-# batched engine, beside the batched step, on the first frame of its pass:
-# ~83,000 launches per frame at S = 16, which the profiler takes ~20 s to
-# record on a slow host
-PARALLEL_SCAN_FRAMES = 1
+# the scan-form mapping step in the per-frame batched engine, beside the
+# vectorized step, on the first frames of its pass: one loop over the 64
+# observation slots for all 16 sessions, a few thousand launches per frame
+# (83,431 when each session looped alone, NVIDIA H100 80GB HBM3, 700 W);
+# held under SCAN_LAUNCHES_PER_FRAME
+PARALLEL_SCAN_FRAMES = 8
+SCAN_LAUNCHES_PER_FRAME = 10_000
 # the mesh-sharded association on the blocked lap: compat and I2 at block 16
 ASSOC_MESH_RUNS = {"first": ("first", 16), "I2_b16": ("I2", 16)}
+# Phase `chain`: the pose-chain solvers on bench_scaling.py's chain graph
+# (scripts/bench_chain_solvers.py's synth(512, 512): a circular track of 512
+# poses and 512 cones, 6 observations per pose; GNConfig(iterations=4),
+# bench_scaling.py:226-233) and on the fusion's joint graph (phase
+# `fusion`'s 8 sessions merged, 3,072 poses, n = 9,216). Every solver runs on
+# a one-rank NCCL chain mesh, then in a world of CHAIN_RANKS gloo ranks on
+# cuda:0 (hier at tray 2; hier3 at tray 2, pod 4), held to the single-device
+# GN within the JAX tests' bounds: tests/test_parallel.py:342 (2e-3 at
+# trackdrive scale), test_hier.py:56 (5e-3), test_fusion.py:364 (3e-3), :406
+# and :448 (1e-2). The chain graph is held in float64: in FP32 its GN is
+# ill-conditioned (on the CPU the single-device FP32 solve ends metres from
+# the float64 one after 4 iterations, and the FP32 solvers decimetres from
+# each other), so FP32 shows the arithmetic, not the solver; its FP32 solves
+# are timed, with their deviation from the float64 solve printed. The fused
+# graph, anchored by GPS priors, is held in FP32.
+CHAIN_SYNTH, CHAIN_ITERATIONS, CHAIN_RANKS, CHAIN_TIMEOUT_S = 512, 4, 4, 600.0
+CHAIN_SOLVERS = ("replicated", "dd", "resident", "hier", "hier3")
+CHAIN_ATOL = {"synth64": dict(replicated=2e-3, dd=2e-3, resident=2e-3, hier=5e-3, hier3=5e-3),
+              "fused": dict(replicated=3e-3, dd=3e-3, resident=3e-3, hier=1e-2, hier3=1e-2),
+              "fuse_sessions": 1e-2}
+# phase 5: the closure GN under 'high' (TF32) within the JAX package's
+# documented ~1e-3 relative error of 'highest'; 'default' (bf16) reported
+GN_PRECISION_RTOL = 1e-3
 # the gloo world's map-sharded association: the pod map over two shards
 ASSOC_MESH_CASES = (("first", False), ("first", True), ("nearest", False),
                     ("mahalanobis", False))
@@ -1204,6 +1246,152 @@ def gloo_rank(rank, port, workdir):
     torch.save(_to(out, "cpu"), os.path.join(workdir, f"rank{rank}.pt"))
 
 
+def chain_synth(n_poses: int, n_lm: int, device="cuda"):
+    """scripts/bench_chain_solvers.py's `synth` (bench_scaling.py's chain
+    graph) in numpy, the same draws from seed 0: a circular track of
+    `n_poses` keyframes and `n_lm` cones, each pose observing its 6 nearest
+    cones; capacity (n_poses, n_lm, 8 n_poses)."""
+    from tpuslam_torch.backend.graph import empty_graph
+    cap = GraphCapacity(max_poses=n_poses, max_landmarks=n_lm, max_obs=n_poses * 8)
+    rng = np.random.default_rng(0)
+    t = np.linspace(0, 2 * np.pi, n_poses, endpoint=False)
+    poses = np.stack([40 * np.cos(t), 40 * np.sin(t), t + np.pi / 2], -1)
+    tl = np.linspace(0, 2 * np.pi, n_lm, endpoint=False)
+    lm = np.stack([45 * np.cos(tl), 45 * np.sin(tl)], -1)
+    odo = np.zeros((n_poses, 3), np.float32)
+    for k in range(1, n_poses):
+        d = poses[k, :2] - poses[k - 1, :2]
+        c, s = np.cos(poses[k - 1, 2]), np.sin(poses[k - 1, 2])
+        odo[k] = [c * d[0] + s * d[1], -s * d[0] + c * d[1], poses[k, 2] - poses[k - 1, 2]]
+    obs_p, obs_l, obs_xy = [], [], []
+    for k in range(n_poses):
+        d2 = ((lm - poses[k, :2]) ** 2).sum(1)
+        for j in np.argsort(d2)[:6]:
+            dd = lm[j] - poses[k, :2]
+            c, s = np.cos(poses[k, 2]), np.sin(poses[k, 2])
+            obs_p.append(k)
+            obs_l.append(j)
+            obs_xy.append([c * dd[0] + s * dd[1] + rng.normal(0, .05),
+                           -s * dd[0] + c * dd[1] + rng.normal(0, .05)])
+    n_obs, pad = len(obs_p), cap.max_obs - len(obs_p)
+
+    def t(x, dtype=torch.float32):
+        return torch.tensor(np.asarray(x), dtype=dtype, device=device)
+    return dataclasses.replace(
+        empty_graph(cap, device),
+        poses=t(poses + rng.normal(0, .1, poses.shape)), lm_xy=t(lm + rng.normal(0, .2, lm.shape)),
+        odo_meas=t(odo), obs_pose=t(np.pad(obs_p, (0, pad)), torch.int32),
+        obs_lm=t(np.pad(obs_l, (0, pad)), torch.int32),
+        obs_xy=t(np.pad(obs_xy, ((0, pad), (0, 0)))), n_poses=t(n_poses, torch.int32),
+        n_landmarks=t(n_lm, torch.int32), n_obs=t(n_obs, torch.int32))
+
+
+def chain_solve(g, cfg, mesh, solver):
+    """One of CHAIN_SOLVERS on `g` over the chain `mesh`: hier at tray 2
+    (tray 1 on a mesh of one), hier3 at the layout `chain_optimize` picks."""
+    from tpuslam_torch.parallel import chain_optimize, chain_optimize_resident
+    from tpuslam_torch.parallel.collectives import shard
+    if solver == "resident":
+        return chain_optimize_resident(g, cfg, mesh)
+    tray = min(2, shard(mesh, "chain")[1]) if solver == "hier" else None
+    return chain_optimize(g, cfg, mesh, solver=solver, tray=tray)
+
+
+def chain_payload(g, cfg, mesh, solver):
+    """(counted, analytic) bytes per rank of one iteration of `solver` on
+    `g`, by kind: as the collectives count them (two iterations less one),
+    and as `comm_model.tier_bytes_per_iteration` or the solver's
+    `*_comm_bytes_per_iteration` give them (psum, and the gathered total
+    over the ranks)."""
+    from tpuslam_torch.parallel import comm_model, partition_chain_resident
+    from tpuslam_torch.parallel.chain import default_tray, partition_chain
+    from tpuslam_torch.parallel.collectives import shard
+    from tpuslam_torch.parallel.hier import hier_comm_bytes_per_iteration, partition_chain_hier
+    from tpuslam_torch.parallel.hier3 import (hier3_comm_bytes_per_iteration,
+                                              partition_chain_hier3)
+    from tpuslam_torch.parallel.instrument import collective_payload_bytes
+    one, two = (collective_payload_bytes(chain_solve, g, dataclasses.replace(cfg, iterations=k),
+                                         mesh, solver) for k in (1, 2))
+    counted = {k: two[k]["bytes"] - one[k]["bytes"] for k in two if k != "total_bytes"}
+    D = shard(mesh, "chain")[1]
+    P, L = g.poses.shape[0], g.lm_xy.shape[0]
+    if solver == "hier":
+        a = hier_comm_bytes_per_iteration(partition_chain_hier(g, D, min(2, D)))
+        levels = a["level1_tray_psum"] + a["level2_cross_psum"]
+    elif solver == "hier3":
+        a = hier3_comm_bytes_per_iteration(partition_chain_hier3(
+            g, D, default_tray(D, cap=max(2, min(16, D // 2))), D))
+        levels = a["level1_tray_psum"] + a["level2_pod_psum"] + a["level3_cross_psum"]
+    else:
+        shared_cap = {"replicated": 64, "dd": partition_chain(g, D).shared_cap,
+                      "resident": partition_chain_resident(g, D).shared_cap}[solver]
+        tier = {"replicated": "chain_replicated", "dd": "chain_dd",
+                "resident": "chain_dd_resident"}[solver]
+        m = comm_model.tier_bytes_per_iteration(tier, P=P, L=L, D=D, shared_cap=shared_cap)
+        return counted, {"psum": m["payload_psum"], "all_gather": m["payload_gather"] // D}
+    return counted, {"psum": levels + a["shared_hll_gl_psum"] + a["dl_shared_psum"],
+                     "all_gather": 4}
+
+
+def chain_paths(mesh, work):
+    """Phase `chain`'s solves over the chain `mesh` on the graphs in
+    `work`: every solver on each checked graph and on the FP32 chain graph,
+    `fuse_sessions`' chain solvers, and the payload per iteration of each
+    solver on the FP32 chain graph."""
+    out = {"graphs": {}, "fuse_sessions": {}, "payload": {}}
+    for name, g in {**work["graphs"], "synth": work["timed"]["synth"]}.items():
+        cfg = work["cfg"][name]
+        out["graphs"][name] = {s: chain_solve(g, cfg, mesh, s) for s in CHAIN_SOLVERS}
+    st, gate, fcfg = work["sessions"], work["gate"], work["cfg"]["fused"]
+    for solver in ("dd", "hier", "hier3"):
+        f, rep = fuse_sessions(st.graph, cfg=fcfg, gate=gate, lm_info=st.lm_info_xy,
+                               align=False, solver=solver, solve_mesh=mesh)
+        out["fuse_sessions"][solver] = f
+    for solver in CHAIN_SOLVERS:
+        out["payload"][solver] = chain_payload(work["timed"]["synth"], work["cfg"]["synth"],
+                                               mesh, solver)
+    return out
+
+
+def pose_gap(a, b) -> tuple:
+    """(max |dx|, |dy| in m, max |dtheta| wrapped, in rad) between two pose
+    arrays' rows."""
+    a, b = a.double(), b.double()
+    dth = torch.remainder(a[:, 2] - b[:, 2] + np.pi, 2 * np.pi) - np.pi
+    return float((a[:, :2] - b[:, :2]).abs().max()), float(dth.abs().max())
+
+
+def chain_rank(rank, port, workdir):
+    """One rank of phase `chain`'s gloo world on cuda:0: `chain_paths` over
+    a chain mesh of CHAIN_RANKS, each solve timed once more on the host
+    clock, its results and kernel launch counts saved in `workdir`."""
+    from tpuslam_torch.parallel.mesh import initialize_distributed, make_chain_mesh
+    torch.backends.cuda.matmul.allow_tf32 = False
+    initialize_distributed("gloo", f"localhost:{port}", CHAIN_RANKS, rank,
+                           timeout_s=CHAIN_TIMEOUT_S)
+    try:
+        work = _to(torch.load(os.path.join(workdir, "work.pt"), weights_only=False), "cuda")
+        mesh = make_chain_mesh(CHAIN_RANKS, device_type="cuda")
+        A.launches = C.launches = 0
+        out = chain_paths(mesh, work)
+        torch.cuda.synchronize()
+        out["launches"] = {"assoc": A.launches, "cholesky": C.launches}
+        out["ms"] = {}
+        for name, g in work["timed"].items():
+            for solver in CHAIN_SOLVERS:
+                torch.distributed.barrier()
+                t0 = time.perf_counter()
+                chain_solve(g, work["cfg"][name], mesh, solver)
+                torch.cuda.synchronize()
+                out["ms"][f"{name}/{solver}"] = (time.perf_counter() - t0) * 1e3
+        out["graphs"] = {k: {s: (r.poses, r.lm_xy) for s, r in v.items()}
+                         for k, v in out["graphs"].items()}
+        out["fuse_sessions"] = {k: (r.poses, r.lm_xy) for k, r in out["fuse_sessions"].items()}
+    finally:
+        torch.distributed.destroy_process_group()
+    torch.save(_to(out, "cpu"), os.path.join(workdir, f"rank{rank}.pt"))
+
+
 def compare_mesh_lap(what, got, want):
     """A lap through the mesh-sharded map against the lap without it, both
     on the card: True when every discrete output and the edges are equal
@@ -1903,6 +2091,45 @@ class Smoke:
         self.kernels["cholesky"]["launches"] = launches
         self.kernels["cholesky"].setdefault("launches_by_path", {})["closure"] = launches
         self.closure_accuracy(self.closure_s)
+        self.closure_precision(g, cfg, without)
+
+    def closure_precision(self, g, cfg, want):
+        """The closure GN under `GNConfig.matmul_precision` 'high' (TF32)
+        and 'default' (torch's 'medium'; the JAX package calls it unsafe
+        near closure-scale graphs), after one seeded matmul's error under
+        each of torch's settings (what 'medium' runs on this card): each
+        GN's largest deviation from the
+        'highest' solve `want`, relative to the largest value, printed with
+        its time beside 'highest'; 'high' within GN_PRECISION_RTOL. TF32 is
+        off again after each call."""
+        a, b = spd(1024, seed=1), spd(1024, seed=2)
+        exact = a.double() @ b.double()
+        for torch_prec in ("highest", "high", "medium"):
+            with gn._matmul_precision(torch_prec):
+                err = float((a @ b - exact).abs().max() / exact.abs().max())
+            self.log(f"closure: one 1024^3 matmul under torch's '{torch_prec}' float32 "
+                     f"precision: {err:.3g} relative from float64 [{self.card}]")
+        ms = {"highest": statistics.median(
+            cuda_ms(functools.partial(gn.optimize, g, cfg), reps=1) for _ in range(3))}
+        for prec in ("high", "default"):
+            pcfg = dataclasses.replace(cfg, matmul_precision=prec)
+            got = gn.optimize(g, pcfg)
+            torch.cuda.synchronize()
+            if torch.backends.cuda.matmul.allow_tf32 or \
+                    torch.get_float32_matmul_precision() != "highest":
+                raise AssertionError(f"closure: TF32 left on after the '{prec}' GN")
+            rel = max(float((got.poses - want.poses).abs().max() / want.poses.abs().max()),
+                      float((got.lm_xy - want.lm_xy).abs().max() / want.lm_xy.abs().max()))
+            ms[prec] = statistics.median(
+                cuda_ms(functools.partial(gn.optimize, g, pcfg), reps=1) for _ in range(3))
+            self.log(f"closure: matmul_precision '{prec}': max deviation from 'highest' "
+                     f"{rel:.3g} relative (max|dpose| "
+                     f"{float((got.poses - want.poses).abs().max()):.3g} m); median "
+                     f"{ms[prec]:.2f} ms of 3 against {ms['highest']:.2f} ms for 'highest'; "
+                     f"TF32 off again after it [{self.card}]")
+            if prec == "high" and not rel <= GN_PRECISION_RTOL:
+                raise AssertionError(f"closure: 'high' deviates {rel:.3g} relative from "
+                                     f"'highest', over {GN_PRECISION_RTOL}")
 
     def closure_accuracy(self, s, kernel=None, twin=None, what="S"):
         """The closure's S is ill-conditioned in its last pose rows, where FP32
@@ -1980,14 +2207,14 @@ class Smoke:
         finally:
             torch.distributed.destroy_process_group()
 
-    def parallel_row(self, what: str, fn) -> float:
-        """One timed row of phase `parallel`: median of 3 calls (CUDA events;
-        the caller's checked run was the warm-up), and one call under the
-        profiler."""
+    def parallel_row(self, what: str, fn, phase: str = "parallel") -> float:
+        """One timed row of phase `parallel` (or `phase`): median of 3 calls
+        (CUDA events; the caller's checked run was the warm-up), and one
+        call under the profiler."""
         calls = sorted(cuda_ms(fn, reps=1, warmup=False) for _ in range(3))
         ms = calls[1]
         busy, kernels, reads = profile_counts(fn)
-        self.log(f"parallel timing: {what}: median {ms:.2f} ms of 3 (min {calls[0]:.2f}, max "
+        self.log(f"{phase} timing: {what}: median {ms:.2f} ms of 3 (min {calls[0]:.2f}, max "
                  f"{calls[2]:.2f}), device busy {busy:.2f} ms ({100 * busy / ms:.1f}%), "
                  f"{kernels} kernel launches, {reads} device-to-host reads [{self.card}]")
         return ms
@@ -2079,9 +2306,9 @@ class Smoke:
             self.log(f"parallel timing: {name}: per-frame batched {S * t / ms * 1e3:.1f} "
                      f"frames/s, blocked batched {S * t / ms_b * 1e3:.1f} frames/s "
                      f"({ms / ms_b:.1f}x the time) [{self.card}]")
-        # the scan-form mapping step has no batched form: each session steps
-        # its frame through its own `perform_keyframe`. One call each (CUDA
-        # events; eager, so nothing to warm up), and one under the profiler
+        # the scan-form mapping step beside the vectorized one: one call
+        # each (CUDA events; eager, so nothing to warm up), and one under the
+        # profiler; the scan form steps every session's slots together
         k, first = PARALLEL_SCAN_FRAMES, batched_configs(cap)["first"]
         for what, cfg in (("vectorized", first),
                           ("scan form", dataclasses.replace(first, vectorized_mapping=False))):
@@ -2094,6 +2321,9 @@ class Smoke:
                      f"first {k} frame(s): {kernels / k:.1f} kernel launches, {reads / k:.1f} "
                      f"device-to-host reads and {ms / k:.2f} ms per frame of {S} sessions, "
                      f"device busy {busy:.2f} ms ({100 * busy / ms:.1f}%) [{self.card}]")
+            if what == "scan form" and kernels / k >= SCAN_LAUNCHES_PER_FRAME:
+                raise AssertionError(f"scan-form mapping step: {kernels / k:.0f} launches per "
+                                     f"frame at S = {S}, not under {SCAN_LAUNCHES_PER_FRAME}")
 
     def assoc_shape_timing(self, key, shape, launches):
         """The association kernel at a path's (S, N, M) on S `assoc_world`s,
@@ -2386,6 +2616,161 @@ class Smoke:
                      f"kernel launches {got['launches']}")
         self.log(f"parallel: gloo world of {GLOO_RANKS} ranks on cuda:0 in {wall:.1f} s "
                  f"(spawn included)")
+
+    # -- after parallel
+    def chain(self):
+        """The pose-chain solvers (CHAIN_SOLVERS) on bench_scaling.py's chain
+        graph (`chain_synth`) and on the fusion's joint graph (phase
+        `fusion`'s dense sessions merged, n = 9216), and `fuse_sessions`'
+        chain solvers on those sessions: first on a one-rank NCCL chain mesh
+        (every partitioner takes one shard), each solve held to the
+        single-device `gauss_newton.optimize` (CHAIN_ATOL) and timed, no
+        kernel launched, its payload per iteration counted against the
+        analytic one; then in a world of CHAIN_RANKS gloo ranks on cuda:0."""
+        from tpuslam_torch.parallel.mesh import initialize_distributed, make_chain_mesh
+        cfg, run = self.fusion_run
+        st, gate = run["states"], cfg.same_cone_threshold
+        fused, _ = fuse_sessions(st.graph, cfg=None, gate=gate, lm_info=st.lm_info_xy,
+                                 align=False)
+        fcfg = dataclasses.replace(fusion_gn_config(cfg), iterations=CHAIN_ITERATIONS,
+                                   early_exit_tol=0.0)
+        synth = chain_synth(CHAIN_SYNTH, CHAIN_SYNTH)
+        synth64 = dataclasses.replace(synth, **{f.name: getattr(synth, f.name).double()
+                                                for f in dataclasses.fields(synth)
+                                                if getattr(synth, f.name).is_floating_point()})
+        scfg = gn.GNConfig(iterations=CHAIN_ITERATIONS)
+        work = dict(graphs={"synth64": synth64, "fused": fused},
+                    timed={"synth": synth, "fused": fused},
+                    cfg={"synth64": scfg, "synth": scfg, "fused": fcfg}, sessions=st, gate=gate)
+        ref = {name: gn.optimize(g, work["cfg"][name]) for name, g in work["graphs"].items()}
+        ref["auto"] = fuse_sessions(st.graph, cfg=fcfg, gate=gate, lm_info=st.lm_info_xy,
+                                    align=False)[0]
+        for name, g in work["timed"].items():
+            self.log(f"chain: graph {name}: {int(g.n_poses)} poses, {int(g.n_landmarks)} "
+                     f"landmarks, {int(g.n_obs)} edges, {work['cfg'][name].iterations} "
+                     f"iterations; the single-device GN in "
+                     f"{cuda_ms(functools.partial(gn.optimize, g, work['cfg'][name]), 1):.2f} ms "
+                     f"[{self.card}]")
+        dx, dth = pose_gap(gn.optimize(synth, scfg).poses, ref["synth64"].poses)
+        self.log(f"chain: synth in FP32: the single-device GN ends {dx:.4g} m / {dth:.4g} rad "
+                 "from the float64 one (the graph's FP32 conditioning)")
+        initialize_distributed("nccl")
+        try:
+            mesh = make_chain_mesh(1, device_type="cuda")
+            A.launches = C.launches = 0
+            one = chain_paths(mesh, work)
+            torch.cuda.synchronize()
+            launches = {"assoc": A.launches, "cholesky": C.launches}
+            self.check_chain("one NCCL rank", {k: {s: (r.poses, r.lm_xy) for s, r in v.items()}
+                                               for k, v in one["graphs"].items()},
+                             {k: (r.poses, r.lm_xy) for k, r in one["fuse_sessions"].items()},
+                             work, ref, launches)
+            for name, g in work["timed"].items():
+                for solver in CHAIN_SOLVERS:
+                    ms = self.parallel_row(
+                        f"{solver} on {name}, D = 1, {work['cfg'][name].iterations} iterations",
+                        functools.partial(chain_solve, g, work["cfg"][name], mesh, solver),
+                        phase="chain")
+                    self.log(f"chain timing: {solver} on {name}, D = 1: {ms:.2f} ms per solve "
+                             f"[{self.card}]")
+            self.log_payload("one NCCL rank, D = 1", one["payload"])
+        finally:
+            torch.distributed.destroy_process_group()
+        self.chain_gloo(work, ref)
+        self.log("chain: scaling efficiency across cards is not measured: the run has one "
+                 "card, NCCL puts no two ranks on one card, and the gloo world on cuda:0 "
+                 "shows that the solvers are right, not how they scale")
+
+    def check_chain(self, what, graphs, fused_solvers, work, ref, launches):
+        """Each solve against the single-device GN on its graph's active rows
+        (CHAIN_ATOL), `fuse_sessions`' chain solvers against solver='auto',
+        and no kernel launched."""
+        if any(launches.values()):
+            raise AssertionError(f"chain {what}: kernel launches {launches}; the chain solvers "
+                                 "factor with cholesky_ex")
+        dev = {}
+        for name, res in graphs.items():
+            if name == "synth":
+                # FP32 on the ill-conditioned chain graph: reported against
+                # the float64 single-device solve, not held
+                n_p = int(work["timed"]["synth"].n_poses)
+                dev.update({f"synth FP32/{s} (m, rad)": pose_gap(p[:n_p],
+                                                                 ref["synth64"].poses[:n_p])
+                            for s, (p, lm) in res.items()})
+                continue
+            g = work["graphs"][name]
+            n_p, n_l = int(g.n_poses), int(g.n_landmarks)
+            for solver, (p, lm) in res.items():
+                atol = CHAIN_ATOL[name][solver]
+                torch.testing.assert_close(p[:n_p], ref[name].poses[:n_p], atol=atol, rtol=0,
+                                           msg=f"chain {what}: {solver} on {name}: poses")
+                torch.testing.assert_close(lm[:n_l], ref[name].lm_xy[:n_l], atol=atol, rtol=0,
+                                           msg=f"chain {what}: {solver} on {name}: landmarks")
+                dev[f"{name}/{solver}"] = float((p[:n_p] - ref[name].poses[:n_p]).abs().max())
+        g = work["graphs"]["fused"]
+        n_p, n_l = int(g.n_poses), int(g.n_landmarks)
+        for solver, (p, lm) in fused_solvers.items():
+            atol = CHAIN_ATOL["fuse_sessions"]
+            torch.testing.assert_close(p[:n_p], ref["auto"].poses[:n_p], atol=atol, rtol=0,
+                                       msg=f"chain {what}: fuse_sessions({solver}): poses")
+            torch.testing.assert_close(lm[:n_l], ref["auto"].lm_xy[:n_l], atol=atol, rtol=0,
+                                       msg=f"chain {what}: fuse_sessions({solver}): landmarks")
+            dev[f"fuse_sessions/{solver}"] = float(
+                (p[:n_p] - ref["auto"].poses[:n_p]).abs().max())
+        self.log(f"chain: {what}: every solve within CHAIN_ATOL of the single-device GN "
+                 f"(fuse_sessions' solvers of solver='auto'); max|dpose| "
+                 + json.dumps({k: [float(f"{x:.3g}") for x in v] if isinstance(v, tuple)
+                               else float(f"{v:.3g}") for k, v in dev.items()})
+                 + f"; kernel launches {launches}")
+
+    def log_payload(self, what, payload):
+        """Each solver's counted payload per iteration beside the analytic."""
+        for solver, (counted, analytic) in payload.items():
+            self.log(f"chain payload: {what}, {solver} on synth: counted per iteration "
+                     + json.dumps(counted) + "; analytic psum " + json.dumps(analytic["psum"])
+                     + ", all_gather per rank " + json.dumps(analytic["all_gather"]))
+            if counted.get("psum") != analytic["psum"] or \
+                    counted.get("all_gather") != analytic["all_gather"]:
+                raise AssertionError(f"chain payload {what} {solver}: counted {counted}, "
+                                     f"analytic {analytic}")
+
+    def chain_gloo(self, work, ref):
+        """CHAIN_RANKS gloo ranks on cuda:0 (spawned; the kernels built):
+        `chain_paths` over a chain mesh of CHAIN_RANKS, each rank's results
+        held to the single-device references, its solves timed on the host
+        clock, its payloads per iteration against the analytic ones."""
+        import shutil
+        from tpuslam_torch.parallel.mesh import free_port
+        workdir = tempfile.mkdtemp(prefix="chip_smoke_chain_")
+        try:
+            torch.save(_to(work, "cpu"), os.path.join(workdir, "work.pt"))
+            t0 = time.perf_counter()
+            ctx = torch.multiprocessing.start_processes(
+                chain_rank, args=(free_port(), workdir), nprocs=CHAIN_RANKS, join=False,
+                start_method="spawn")
+            deadline = t0 + CHAIN_TIMEOUT_S + 60.0
+            while not ctx.join(timeout=5):
+                if time.perf_counter() > deadline:
+                    for p in ctx.processes:
+                        p.kill()
+                    raise AssertionError(f"chain gloo world: ranks ran past "
+                                         f"{CHAIN_TIMEOUT_S + 60} s")
+            wall = time.perf_counter() - t0
+            ranks = [_to(torch.load(os.path.join(workdir, f"rank{r}.pt"), weights_only=False),
+                         "cuda") for r in range(CHAIN_RANKS)]
+        finally:
+            shutil.rmtree(workdir, ignore_errors=True)
+        for r, got in enumerate(ranks):
+            what = f"gloo rank {r} of {CHAIN_RANKS}"
+            self.check_chain(what, got["graphs"], got["fuse_sessions"], work, ref,
+                             got["launches"])
+            self.log_payload(f"{what}, D = {CHAIN_RANKS}", got["payload"])
+            self.log(f"chain timing: {what} (host clock, one solve each after the checked "
+                     "ones; 4 ranks share cuda:0 and reduce through the host): "
+                     + json.dumps({k: round(v, 2) for k, v in got["ms"].items()})
+                     + f" ms [{self.card}]")
+        self.log(f"chain: gloo world of {CHAIN_RANKS} ranks on cuda:0 in {wall:.1f} s (spawn "
+                 "included)")
 
     @staticmethod
     def laps(obs, valid, poses):
@@ -2885,7 +3270,7 @@ def main() -> int:
     smoke = Smoke()
     phases = (smoke.build, smoke.kernels_vs_plain, smoke.compat, smoke.kernel_association,
               smoke.blocked, smoke.improved, smoke.batched, smoke.fusion, smoke.service,
-              smoke.lidar, smoke.closure_solve, smoke.timing, smoke.parallel)
+              smoke.lidar, smoke.closure_solve, smoke.timing, smoke.parallel, smoke.chain)
     if sys.argv[1:] == ["--assoc-plans"]:
         phases = (smoke.build, smoke.assoc_plans, smoke.assoc_host)
     elif sys.argv[1:]:

@@ -341,3 +341,35 @@ def test_window_gn_refuses_a_window_past_the_capacity():
         tgn.window_gn_step(g, tgn.GNConfig(), 65, 128)
     with pytest.raises(ValueError, match="capacity"):
         tgn.window_gn_step(g, tgn.GNConfig(), 8, 257)
+
+
+def _rel(got, want):
+    """max |got - want| over max |want|: the JAX package's "relative
+    error" of its mixed-precision GN."""
+    want = np.asarray(want)
+    return float(np.max(np.abs(np.asarray(got) - want)) / np.max(np.abs(want)))
+
+
+@pytest.mark.parametrize("prec", ["high", "default"])
+def test_matmul_precision_matches_jax_and_restores(world, window_world, prec):
+    """`GNConfig.matmul_precision` 'high' (TF32 on the card) and 'default'
+    (bf16): the closure GN (`optimize`) and the window GN
+    (`optimize_window`) within 1e-3 relative of the JAX package's under the
+    same setting (the error it documents for 'high'); torch's float32
+    matmul precision is back to what it was after each call, and after a
+    call that raises inside the GN."""
+    before = torch.get_float32_matmul_precision()
+    jcfg = dataclasses.replace(JAX_CFG, matmul_precision=prec)
+    got, want = tgn.optimize(_port(world), _cfg(jcfg)), jgn.optimize(world, jcfg)
+    assert torch.get_float32_matmul_precision() == before
+    assert _rel(got.poses, want.poses) <= 1e-3 and _rel(got.lm_xy, want.lm_xy) <= 1e-3
+    wcfg = jgn.GNConfig(iterations=3, matmul_precision=prec)
+    got = tgn.optimize_window(_port(window_world), _cfg(wcfg), 6, 128)
+    want = jgn.optimize_window(window_world, wcfg, 6, 128)
+    assert torch.get_float32_matmul_precision() == before
+    assert _rel(got.poses, want.poses) <= 1e-3 and _rel(got.lm_xy, want.lm_xy) <= 1e-3
+    with pytest.raises(ValueError, match="capacity"):
+        tgn.optimize_window(_port(window_world), _cfg(wcfg), 65, 128)
+    assert torch.get_float32_matmul_precision() == before
+    with pytest.raises(ValueError, match="matmul_precision"):
+        tgn.optimize(_port(world), tgn.GNConfig(matmul_precision="fastest"))

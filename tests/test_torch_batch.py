@@ -115,7 +115,7 @@ def test_batched_sessions_match_sequential(name):
     test's configuration, the whole run equal to the JAX package's batched
     run (decisions exact, values 1e-3). The kernel configuration gates
     through the association kernel's plain twin here; the scan-form
-    mapping step runs each session alone."""
+    mapping step steps the sessions together."""
     cfg, jcfg = _cfgs(name)
     ins = _inputs()
     fin, outs = _port(cfg, ins)
@@ -254,3 +254,68 @@ def test_defer_gn_flags_what_the_keyframe_would_run():
     assert wanted["closure"] == 1 and wanted["periodic"] > 0
     np.testing.assert_allclose(st.graph.poses.numpy(), want.graph.poses.numpy(), atol=SEQ_ATOL)
     assert int(st.graph.n_landmarks) == int(want.graph.n_landmarks)
+
+
+def test_scan_form_steps_sessions_batched(monkeypatch):
+    """Under the scan-form mapping step the sessions still mapping are
+    stepped together (`keyframe._mapping_step` over [S, L]): no frame goes
+    through `perform_keyframe` but a fallback's. On the skidpad pair none
+    does; with a pose capacity the frames outgrow, exactly the frames after
+    a session's pose store is full do, and each session still equals its
+    own `run_sequence` (within 1e-5, closure and counts exact)."""
+    import tpuslam_torch.parallel.batch as batch
+    calls = []
+
+    def counted(*a, **k):
+        calls.append(1)
+        return perform_keyframe(*a, **k)
+
+    monkeypatch.setattr(batch, "perform_keyframe", counted)
+    cfg, _ = _cfgs("scan_form")
+    ins = _inputs()
+    _port(cfg, ins)
+    assert not calls
+    small = dataclasses.replace(cfg, capacity=GraphCapacity(24, 128, 2048))
+    fin, outs = _port(small, ins)
+    T = ins[0].shape[1]
+    assert len(calls) == 2 * (T - 24), (len(calls), T)
+    for s in range(2):
+        st, out1 = run_sequence(initial_state(small.capacity, "cpu"),
+                                *(torch.tensor(x[s]) for x in ins), small)
+        np.testing.assert_allclose(out1.pose.numpy(), outs.pose[s].numpy(), atol=SEQ_ATOL)
+        np.testing.assert_allclose(st.graph.lm_xy.numpy(), fin.graph.lm_xy[s].numpy(),
+                                   atol=SEQ_ATOL)
+        assert bool(st.loop_closure_complete) == bool(fin.loop_closure_complete[s])
+        assert int(st.graph.n_landmarks) == int(fin.graph.n_landmarks[s])
+        assert torch.equal(out1.cone_type, outs.cone_type[s])
+
+
+def test_one_session_scan_form_equals_run_sequence():
+    """S = 1 under the scan-form mapping step is bit-equal to `run_sequence`
+    (the per-frame engine's `_mapping_step` is the same function at S = 1),
+    but for the closure frame's cone packet, which the deferred closure GN
+    leaves computed from the map before it."""
+    cfg, _ = _cfgs("scan_form")
+    ins = [x[:1] for x in _inputs()]
+    fin, outs = _port(cfg, ins)
+    st, out1 = run_sequence(initial_state(cfg.capacity, "cpu"),
+                            *(torch.tensor(x[0]) for x in ins), cfg)
+    kc = torch.nonzero(out1.loop_closed).flatten()
+    assert len(kc) == 1
+    keep = torch.ones(len(out1.pose), dtype=torch.bool)
+    keep[kc] = False
+    for f in dataclasses.fields(out1):
+        a, b = getattr(out1, f.name), getattr(outs, f.name)[0]
+        if f.name in ("cone_azimuth", "cone_distance"):
+            a, b = a[keep], b[keep]
+        assert torch.equal(a, b), f.name
+    want = state_to_numpy(st)
+    got = state_to_numpy(session_state(fin, 0))
+    for k in ("current_cone_index", "loop_closure_complete", "keyframe_count"):
+        np.testing.assert_array_equal(got[k], want[k])
+    n = int(want["graph"]["n_obs"])
+    for k, v in want["graph"].items():
+        a = got["graph"][k]
+        if k in ("obs_pose", "obs_lm", "obs_xy"):
+            a, v = a[:n], v[:n]
+        np.testing.assert_array_equal(a, v, err_msg=k)

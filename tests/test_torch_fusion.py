@@ -10,9 +10,9 @@ values within 1e-5 (1e-4 after the joint GN), plus 3 float32 ulps of
 their magnitude (information-weighted merges: 5e-4, their float32
 rounding); map errors within
 `chip_smoke.METRIC_ATOL_M`. Each case also keeps its own assertion from
-tests/test_fusion.py, on the port's result. The chain-solver paths are
-refused by the port (`NotImplementedError`); the mesh path is held to the
-JAX package's by tests/test_torch_parallel.py.
+tests/test_fusion.py, on the port's result. The chain-solver paths run
+here on a one-rank chain mesh and are held to the JAX package's by
+tests/test_torch_chain.py; the mesh path by tests/test_torch_parallel.py.
 """
 import dataclasses
 import functools
@@ -378,13 +378,14 @@ def test_fusion_robust_trim_beats_plain_on_drift():
     assert e_rob <= e_plain + 2e-3, (e_rob, e_plain)
 
 
-def test_fuse_sessions_refuses_what_is_not_ported():
-    """tests/test_fusion.py:448's refusal: an unknown solver is a
-    `ValueError` in both packages; the chain solvers, which the port has not
-    yet, are `NotImplementedError`, naming each. The mesh path, refused
-    until the multi-device tier was ported, runs: on a one-rank gloo mesh
-    its labels equal the dense dedup's and its joint GN (`distributed_
-    optimize`) the single-device fusion's within 5e-4
+def test_fuse_sessions_solvers_mesh_and_unknown_refusal():
+    """tests/test_fusion.py:448: an unknown solver is a `ValueError` in
+    both packages; the chain solvers 'dd', 'hier' and 'hier3' (refused by
+    name until they were ported) run on a one-rank gloo chain mesh, each
+    within 1e-2 of solver='auto' (the JAX test's bound; the 8-rank cases
+    are in tests/test_torch_chain.py). The mesh path runs: on a one-rank
+    gloo mesh its labels equal the dense dedup's and its joint GN
+    (`distributed_optimize`) the single-device fusion's within 5e-4
     (tests/test_fusion.py:168's bound)."""
     stacked, _ = _sessions(2, "compat")
     cfg = gn.GNConfig(iterations=3)
@@ -392,11 +393,17 @@ def test_fuse_sessions_refuses_what_is_not_ported():
         fusion.fuse_sessions(stacked, cfg=cfg, solver="nope")
     with pytest.raises(ValueError, match="unknown fusion solver"):
         jfusion.fuse_sessions(_jgraph(stacked), cfg=jgn.GNConfig(iterations=3), solver="nope")
-    for solver in ("dd", "hier", "hier3"):
-        with pytest.raises(NotImplementedError, match=solver):
-            fusion.fuse_sessions(stacked, cfg=cfg, solver=solver, align=False)
-    from tpuslam_torch.parallel.mesh import initialize_distributed, make_slam_mesh
+    from tpuslam_torch.parallel.mesh import initialize_distributed, make_chain_mesh, make_slam_mesh
     initialize_distributed("gloo")
+    want, rep_w = fusion.fuse_sessions(stacked, cfg=cfg, align=False)
+    n_p, n_l = int(want.n_poses), int(want.n_landmarks)
+    chain = make_chain_mesh(device_type="cpu")
+    for solver in ("dd", "hier", "hier3"):
+        got, rep = fusion.fuse_sessions(stacked, cfg=cfg, solver=solver, align=False,
+                                        solve_mesh=chain)
+        assert rep["solver"] == solver and torch.equal(rep["labels"], rep_w["labels"])
+        torch.testing.assert_close(got.poses[:n_p], want.poses[:n_p], atol=1e-2, rtol=0)
+        torch.testing.assert_close(got.lm_xy[:n_l], want.lm_xy[:n_l], atol=1e-2, rtol=0)
     mesh = make_slam_mesh(1, 1, device_type="cpu")
     got, rep = fusion.fuse_sessions(stacked, cfg=cfg, mesh=mesh)
     want, rep_w = fusion.fuse_sessions(stacked, cfg=cfg)

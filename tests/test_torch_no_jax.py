@@ -3,7 +3,8 @@ package: in a fresh interpreter with both `jax` and `tpuslam` made
 unimportable, every module of `tpuslam_torch` (the blocked pipeline, the
 batched sessions, the fusion, the live service with its IO stack, EKF,
 WGS84 projection and checkpoint, the lidar front-end, the per-frame batched
-engine and the multi-device tier on `torch.distributed` among them),
+engine, the multi-device tier on `torch.distributed` and its pose-chain
+solvers among them),
 `chip_smoke` and the GPU tests `tests/test_torch_cuda.py` import."""
 import subprocess
 import sys
@@ -28,7 +29,17 @@ from tpuslam_torch.parallel import (
     initialize_distributed, make_chain_mesh, make_slam_mesh, multisession_optimize,
     run_fleet_blocked,
 )
-from tpuslam_torch.parallel.collectives import all_gather, pmin, psum, shard
+from tpuslam_torch.parallel.collectives import all_gather, counting, pmin, ppermute, psum, shard
+from tpuslam_torch.parallel import (
+    chain_optimize, chain_optimize_resident, partition_chain_resident,
+    partition_edges_by_pose_block, resident_comm_bytes_per_iteration,
+)
+from tpuslam_torch.parallel.chain import chain_gn_step, chain_gn_step_dd, partition_chain
+from tpuslam_torch.parallel.resident import chain_gn_step_dd_resident
+from tpuslam_torch.parallel.hier import chain_optimize_hier, partition_chain_hier
+from tpuslam_torch.parallel.hier3 import chain_optimize_hier3, partition_chain_hier3
+from tpuslam_torch.parallel.instrument import collective_payload_bytes
+from tpuslam_torch.parallel.comm_model import CommModel, tier_bytes_per_iteration
 from tpuslam_torch.parallel.mesh import free_port
 from tpuslam_torch.parallel.fusion import fuse_sessions
 from tpuslam_torch.parallel.multisession import stack_graphs

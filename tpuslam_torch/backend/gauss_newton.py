@@ -11,8 +11,18 @@ closure). Where the JAX package used one-hot matmuls for the TPU, this
 module scatters with `index_add_`; on CUDA those sums use atomics, so their
 order (and the last bits) vary from run to run.
 
-Everything runs in full FP32. `matmul_precision="highest"` is the only
-supported setting and requires TF32 to be off for CUDA matmuls.
+`GNConfig.matmul_precision` sets the precision of the assembly's matmuls
+(the Jacobian products) for the length of one GN call (`precision`):
+"highest" is full FP32 and requires TF32 to be off for CUDA matmuls;
+"high" runs them in TF32 and "default" under PyTorch's float32 matmul
+precision "medium" (bf16 where PyTorch has a fast path for it; on the H100
+its cuBLAS matmul measured TF32's error, `chip_smoke.py` phase 5), the
+JAX package's mixed-precision GN ("~1e-3 relative error"; "default" is
+unsafe near closure-scale graphs). The previous setting comes back on
+exit, on error too. The reduced system (the Schur product, its Cholesky and the
+triangular solves) runs in FP32 under every setting: a TF32 Schur product
+leaves the closure's Schur matrix (condition ~2.4e6) indefinite on the
+H100, and its factor NaN.
 
 The fixed-lag window (`window_gn_step`) gathers its W trailing poses and
 EW trailing edges at device-side indices, so it needs no host read; its
@@ -37,6 +47,7 @@ running mask, once per iteration).
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 from dataclasses import dataclass
 
@@ -61,7 +72,7 @@ class GNConfig:
     damping: float = 0.0
     use_cholesky_kernel: bool = False   # factor S with the hand-written
     # CUDA kernel (ops/cholesky.py) instead of torch.linalg.cholesky_ex
-    matmul_precision: str = "highest"
+    matmul_precision: str = "highest"   # 'highest' (FP32) | 'high' (TF32) | 'default' (medium)
     solve_bucket_step: int = 128        # pose-count granularity of the reduced solve
     edge_bucket_step: int = 2048        # edge-count granularity of the assembly
     early_exit_tol: float = 0.0         # stop once max|update| <= tol (0 = never)
@@ -177,6 +188,20 @@ def landmark_edge_blocks(poses, lm_xy, obs_pose, obs_lm, obs_xy, w_l):
             gp_lm.reshape(*lead, P, 3), gl.reshape(*lead, L, 2))
 
 
+def _landmark_edge_blocks_split(poses, lm_xy, obs_pose, obs_lm, obs_xy, w_l, n_landmarks: int):
+    """`landmark_edge_blocks` of one graph with W as its even/odd column
+    halves W0, W1 [3P, L]: (h_diag_lm, w0, w1, hll, gp_lm, gl), the layout
+    the pose-chain solvers eliminate from. `n_landmarks` is the number of
+    landmark rows, `lm_xy.shape[0]`."""
+    if lm_xy.shape[0] != n_landmarks:
+        raise ValueError(f"{lm_xy.shape[0]} landmark rows, not {n_landmarks}")
+    h_diag_lm, w, hll, gp_lm, gl = landmark_edge_blocks(poses, lm_xy, obs_pose, obs_lm,
+                                                        obs_xy, w_l)
+    P = poses.shape[0]
+    return (h_diag_lm, w[..., 0].reshape(3 * P, n_landmarks),
+            w[..., 1].reshape(3 * P, n_landmarks), hll, gp_lm, gl)
+
+
 def _bucket(count: int, cap: int, step: int) -> int:
     """Smallest multiple of `step` covering `count`, capped at `cap`
     (`cap` itself when bucketing is off)."""
@@ -246,21 +271,24 @@ def _mv(a, x):
 
 def schur_solve_split(hpp, w0, w1, hll, gp, gl, use_cholesky_kernel=False):
     """`schur_solve` on the even/odd W column halves W0/W1 [3P, L], batched
-    over leading axes (one Cholesky call for the batch)."""
-    hll_inv = _inv2x2(hll)
-    ia, ib, ic = hll_inv[..., 0, 0], hll_inv[..., 0, 1], hll_inv[..., 1, 1]
-    wa0 = w0 * ia[..., None, :] + w1 * ib[..., None, :]
-    wa1 = w0 * ib[..., None, :] + w1 * ic[..., None, :]
-    s = hpp - (wa0 @ w0.mT + wa1 @ w1.mT)
-    gl0, gl1 = gl[..., 0], gl[..., 1]
-    rhs = -gp + (_mv(wa0, gl0) + _mv(wa1, gl1))
-    if use_cholesky_kernel:
-        from tpuslam_torch.ops.cholesky import cholesky
-        c = cholesky(s)
-    else:
-        c = torch.linalg.cholesky_ex(s).L
-    dp = torch.cholesky_solve(rhs[..., None], c)[..., 0]
-    r0, r1 = gl0 + _mv(w0.mT, dp), gl1 + _mv(w1.mT, dp)
+    over leading axes (one Cholesky call for the batch). The reduced
+    system (its Schur product, factor and solves) is FP32 whatever the
+    GN's matmul precision (`_fp32`)."""
+    with _fp32():
+        hll_inv = _inv2x2(hll)
+        ia, ib, ic = hll_inv[..., 0, 0], hll_inv[..., 0, 1], hll_inv[..., 1, 1]
+        wa0 = w0 * ia[..., None, :] + w1 * ib[..., None, :]
+        wa1 = w0 * ib[..., None, :] + w1 * ic[..., None, :]
+        s = hpp - (wa0 @ w0.mT + wa1 @ w1.mT)
+        gl0, gl1 = gl[..., 0], gl[..., 1]
+        rhs = -gp + (_mv(wa0, gl0) + _mv(wa1, gl1))
+        if use_cholesky_kernel:
+            from tpuslam_torch.ops.cholesky import cholesky
+            c = cholesky(s)
+        else:
+            c = torch.linalg.cholesky_ex(s).L
+        dp = torch.cholesky_solve(rhs[..., None], c)[..., 0]
+        r0, r1 = gl0 + _mv(w0.mT, dp), gl1 + _mv(w1.mT, dp)
     dl = -torch.stack([ia * r0 + ib * r1, ib * r0 + ic * r1], dim=-1)
     return dp, dl
 
@@ -296,14 +324,50 @@ def _apply_gauge_blocked(g: FactorGraph, cfg: GNConfig, h_diag, h_off, w, hll, g
     return h_diag, h_off, w, hll, gp, gl
 
 
-def _check_precision(cfg: GNConfig, t: torch.Tensor):
-    if cfg.matmul_precision != "highest":
-        raise NotImplementedError(
-            f"GNConfig.matmul_precision={cfg.matmul_precision!r}: only 'highest' "
-            "(full FP32) is ported")
-    if t.is_cuda and torch.backends.cuda.matmul.allow_tf32:
-        raise ValueError("GN needs full FP32 matmuls: set "
-                         "torch.backends.cuda.matmul.allow_tf32 = False")
+# GNConfig.matmul_precision -> torch.set_float32_matmul_precision
+_TORCH_PRECISION = {"highest": "highest", "high": "high", "default": "medium"}
+
+
+@contextlib.contextmanager
+def _matmul_precision(name: str):
+    """torch's float32 matmul precision set to `name` inside, the previous
+    one back on exit (on error too)."""
+    prev = torch.get_float32_matmul_precision()
+    torch.set_float32_matmul_precision(name)
+    try:
+        yield
+    finally:
+        torch.set_float32_matmul_precision(prev)
+
+
+@contextlib.contextmanager
+def _fp32():
+    """Full FP32 matmuls inside (the reduced system), whatever the GN's
+    precision; nothing is set when they are FP32 already."""
+    if torch.get_float32_matmul_precision() == "highest":
+        yield
+    else:
+        with _matmul_precision("highest"):
+            yield
+
+
+@contextlib.contextmanager
+def precision(cfg: GNConfig, t: torch.Tensor):
+    """The scope of one GN call under `cfg.matmul_precision`. 'highest'
+    sets nothing and refuses a global TF32 on CUDA; 'high' and 'default'
+    set torch's 'high' (TF32) and 'medium' for the call and restore the
+    previous setting after it, on error too."""
+    name = cfg.matmul_precision
+    if name not in _TORCH_PRECISION:
+        raise ValueError(f"GNConfig.matmul_precision={name!r}: 'highest', 'high' or 'default'")
+    if name == "highest":
+        if t.is_cuda and torch.backends.cuda.matmul.allow_tf32:
+            raise ValueError("GN needs full FP32 matmuls: set "
+                             "torch.backends.cuda.matmul.allow_tf32 = False")
+        yield
+        return
+    with _matmul_precision(_TORCH_PRECISION[name]):
+        yield
 
 
 def solve_blocks(g: FactorGraph, cfg: GNConfig, blocks, b: int | None = None) -> FactorGraph:
@@ -333,13 +397,13 @@ def solve_blocks(g: FactorGraph, cfg: GNConfig, blocks, b: int | None = None) ->
 def gn_step(g: FactorGraph, cfg: GNConfig) -> FactorGraph:
     """One Gauss-Newton iteration over the full graph, or over each graph of
     a stacked batch [S] at full capacity (no host read)."""
-    _check_precision(cfg, g.poses)
     P, E = g.poses.shape[-2], g.obs_pose.shape[-1]
     n_poses, n_obs = (P, E) if g.n_poses.dim() else torch.stack([g.n_poses, g.n_obs]).tolist()
     # the gauged rows past n_poses are exact identity/zero, so solving on the
     # leading bucket gives the full solve's update
-    return solve_blocks(g, cfg, _assemble_blocked(g, cfg, n_obs),
-                        _bucket(n_poses, P, cfg.solve_bucket_step))
+    with precision(cfg, g.poses):
+        return solve_blocks(g, cfg, _assemble_blocked(g, cfg, n_obs),
+                            _bucket(n_poses, P, cfg.solve_bucket_step))
 
 
 def _iterate_batched(g: FactorGraph, cfg: GNConfig, step, enable) -> FactorGraph:
@@ -409,7 +473,8 @@ def optimize(g: FactorGraph, cfg: GNConfig, enable=None) -> FactorGraph:
             return g
         return _graph_fields(lambda x: x[None],
                              optimize(_graph_fields(lambda x: x[0], g), cfg))
-    return _iterate(g, cfg, lambda gg: gn_step(gg, cfg), enable)
+    with precision(cfg, g.poses):
+        return _iterate(g, cfg, lambda gg: gn_step(gg, cfg), enable)
 
 
 def _graph_fields(fn, g: FactorGraph) -> FactorGraph:
@@ -466,132 +531,135 @@ def window_gn_step(g: FactorGraph, cfg: GNConfig, window: int, edge_window: int,
                              None if end is None else end.reshape(1),
                              None if end_obs is None else end_obs.reshape(1))
         return _graph_fields(lambda x: x[0], out)
-    W, EW = window, edge_window
-    S, P = g.poses.shape[:2]
-    L, E = g.lm_xy.shape[1], g.obs_pose.shape[1]
-    if W > P or EW > E:
-        raise ValueError(f"window {W} / edge window {EW} exceed the graph's capacity "
-                         f"({P} poses, {E} edges)")
-    dtype, dev = g.poses.dtype, g.poses.device
-    sess = torch.arange(S, device=dev)[:, None] if S > 1 else None
-    n = (g.n_poses if end is None else end)[:, None]
-    e_stop = (g.n_obs if end_obs is None else end_obs)[:, None]
-    w0 = torch.clamp(n - W, min=0)
-    kg = w0 + torch.arange(W, device=dev)                 # global pose index per row
-    kgl = kg.long()
-    poses_w = _take(g.poses, kgl, sess)
+    with precision(cfg, g.poses):
+        W, EW = window, edge_window
+        S, P = g.poses.shape[:2]
+        L, E = g.lm_xy.shape[1], g.obs_pose.shape[1]
+        if W > P or EW > E:
+            raise ValueError(f"window {W} / edge window {EW} exceed the graph's capacity "
+                             f"({P} poses, {E} edges)")
+        dtype, dev = g.poses.dtype, g.poses.device
+        sess = torch.arange(S, device=dev)[:, None] if S > 1 else None
+        n = (g.n_poses if end is None else end)[:, None]
+        e_stop = (g.n_obs if end_obs is None else end_obs)[:, None]
+        w0 = torch.clamp(n - W, min=0)
+        kg = w0 + torch.arange(W, device=dev)                 # global pose index per row
+        kgl = kg.long()
+        poses_w = _take(g.poses, kgl, sess)
 
-    # odometry chain within the window, plus the boundary edge's J_j half
-    prev0 = _take(g.poses, torch.clamp(w0 - 1, min=0).long(), sess)
-    p_prev = torch.cat([prev0, poses_w[:, :-1]], dim=1)
-    odo_valid = (kg >= 1) & (kg < n)
-    r_o, j_oi, j_oj = odometry_residuals(p_prev, poses_w, _take(g.odo_meas, kgl, sess))
-    w_o = cfg.odo_info * odo_valid.to(dtype) * _take(g.odo_w, kgl, sess)
-    w3 = w_o[..., None, None]
-    jti = j_oi.transpose(-1, -2)
-    jtj = j_oj.transpose(-1, -2)
-    a_ii = w3 * (jti @ j_oi)
-    a_jj = w3 * (jtj @ j_oj)
-    h_off = w3 * (jti @ j_oj)                             # block (r-1, r)
-    g_i = w_o[..., None] * (jti @ r_o[..., None])[..., 0]
-    g_j = w_o[..., None] * (jtj @ r_o[..., None])[..., 0]
-    h_diag = torch.cat([a_jj[:, :-1] + a_ii[:, 1:], a_jj[:, -1:]], dim=1)
-    h_off = torch.cat([torch.zeros_like(h_off[:, :1]), h_off[:, 1:]], dim=1)
-    gp = torch.cat([g_j[:, :-1] + g_i[:, 1:], g_j[:, -1:]], dim=1)
+        # odometry chain within the window, plus the boundary edge's J_j half
+        prev0 = _take(g.poses, torch.clamp(w0 - 1, min=0).long(), sess)
+        p_prev = torch.cat([prev0, poses_w[:, :-1]], dim=1)
+        odo_valid = (kg >= 1) & (kg < n)
+        r_o, j_oi, j_oj = odometry_residuals(p_prev, poses_w, _take(g.odo_meas, kgl, sess))
+        w_o = cfg.odo_info * odo_valid.to(dtype) * _take(g.odo_w, kgl, sess)
+        w3 = w_o[..., None, None]
+        jti = j_oi.transpose(-1, -2)
+        jtj = j_oj.transpose(-1, -2)
+        a_ii = w3 * (jti @ j_oi)
+        a_jj = w3 * (jtj @ j_oj)
+        h_off = w3 * (jti @ j_oj)                             # block (r-1, r)
+        g_i = w_o[..., None] * (jti @ r_o[..., None])[..., 0]
+        g_j = w_o[..., None] * (jtj @ r_o[..., None])[..., 0]
+        h_diag = torch.cat([a_jj[:, :-1] + a_ii[:, 1:], a_jj[:, -1:]], dim=1)
+        h_off = torch.cat([torch.zeros_like(h_off[:, :1]), h_off[:, 1:]], dim=1)
+        gp = torch.cat([g_j[:, :-1] + g_i[:, 1:], g_j[:, -1:]], dim=1)
 
-    # GPS/heading priors of window poses
-    prior_info_w = _take(g.prior_info, kgl, sess)
-    pose_valid = (kg < n).to(dtype)
-    ixy = prior_info_w[..., 0] * pose_valid
-    ith = prior_info_w[..., 1] * pose_valid
-    eye_xy = torch.diag(torch.tensor([1.0, 1.0, 0.0], dtype=dtype, device=dev))
-    eye_th = torch.diag(torch.tensor([0.0, 0.0, 1.0], dtype=dtype, device=dev))
-    h_diag = h_diag + ixy[..., None, None] * eye_xy + ith[..., None, None] * eye_th
-    r_pr = poses_w - _take(g.prior_pose, kgl, sess)
-    r_pr = torch.cat([r_pr[..., :2], se2.wrap_angle(r_pr[..., 2:])], dim=-1)
-    gp = gp + r_pr * torch.stack([ixy, ixy, ith], dim=-1)
+        # GPS/heading priors of window poses
+        prior_info_w = _take(g.prior_info, kgl, sess)
+        pose_valid = (kg < n).to(dtype)
+        ixy = prior_info_w[..., 0] * pose_valid
+        ith = prior_info_w[..., 1] * pose_valid
+        eye_xy = torch.diag(torch.tensor([1.0, 1.0, 0.0], dtype=dtype, device=dev))
+        eye_th = torch.diag(torch.tensor([0.0, 0.0, 1.0], dtype=dtype, device=dev))
+        h_diag = h_diag + ixy[..., None, None] * eye_xy + ith[..., None, None] * eye_th
+        r_pr = poses_w - _take(g.prior_pose, kgl, sess)
+        r_pr = torch.cat([r_pr[..., :2], se2.wrap_angle(r_pr[..., 2:])], dim=-1)
+        gp = gp + r_pr * torch.stack([ixy, ixy, ith], dim=-1)
 
-    # trailing landmark edges whose pose lies in the window; each session's
-    # sums go to its own rows of one flat buffer
-    e0 = torch.clamp(e_stop - EW, min=0)
-    ke = (e0 + torch.arange(EW, device=dev)).long()
-    op = _take(g.obs_pose, ke, sess)
-    ol = torch.clamp(_take(g.obs_lm, ke, sess).long(), 0, L - 1)
-    in_win = (ke < e_stop) & (op >= w0)
-    w_l = cfg.lm_info * in_win.to(dtype)
-    local = torch.clamp(op - w0, 0, W - 1).long()
-    r_l, j_lp, j_ll = landmark_residuals(_take(poses_w, local, sess), _take(g.lm_xy, ol, sess),
-                                         _take(g.obs_xy, ke, sess))
-    wl3 = w_l[..., None, None]
-    jtp = j_lp.transpose(-1, -2)
-    row = _flat(local, W, sess)
-    h_diag = h_diag.reshape(S * W, 3, 3).index_add(
-        0, row, (wl3 * (jtp @ j_lp)).reshape(-1, 3, 3)).reshape(S, W, 3, 3)
-    gp = gp.reshape(S * W, 3).index_add(
-        0, row, (w_l[..., None] * (jtp @ r_l[..., None])[..., 0]).reshape(-1, 3)).reshape(S, W, 3)
+        # trailing landmark edges whose pose lies in the window; each session's
+        # sums go to its own rows of one flat buffer
+        e0 = torch.clamp(e_stop - EW, min=0)
+        ke = (e0 + torch.arange(EW, device=dev)).long()
+        op = _take(g.obs_pose, ke, sess)
+        ol = torch.clamp(_take(g.obs_lm, ke, sess).long(), 0, L - 1)
+        in_win = (ke < e_stop) & (op >= w0)
+        w_l = cfg.lm_info * in_win.to(dtype)
+        local = torch.clamp(op - w0, 0, W - 1).long()
+        r_l, j_lp, j_ll = landmark_residuals(_take(poses_w, local, sess), _take(g.lm_xy, ol, sess),
+                                             _take(g.obs_xy, ke, sess))
+        wl3 = w_l[..., None, None]
+        jtp = j_lp.transpose(-1, -2)
+        row = _flat(local, W, sess)
+        h_diag = h_diag.reshape(S * W, 3, 3).index_add(
+            0, row, (wl3 * (jtp @ j_lp)).reshape(-1, 3, 3)).reshape(S, W, 3, 3)
+        gp = gp.reshape(S * W, 3).index_add(
+            0, row, (w_l[..., None] * (jtp @ r_l[..., None])[..., 0]).reshape(-1, 3)
+        ).reshape(S, W, 3)
 
-    # gauge clamping by global index (the rows gn_step clamps)
-    free = (kg >= cfg.fix_first_poses) & (kg < n)
-    fpb = free.to(dtype)[..., None, None]
-    eye3 = torch.eye(3, dtype=dtype, device=dev)
-    h_diag = h_diag * fpb + eye3 * (1.0 - fpb)
-    prev_free = torch.cat([free.new_zeros(S, 1), free[:, :-1]], dim=1)
-    h_off = h_off * (free & prev_free).to(dtype)[..., None, None]
-    gp = gp * free.to(dtype)[..., None]
-    if cfg.damping:
-        h_diag = h_diag + eye3 * cfg.damping * fpb
-
-    # one session solves unbatched (see the docstring)
-    solve_in = (lambda x: x[0]) if S == 1 else (lambda x: x)
-    solve_out = (lambda x: x[None]) if S == 1 else (lambda x: x)
-    hpp = densify_hpp(h_diag, h_off)
-    if landmarks:
-        # Hll from each landmark's total edge count (the out-of-window
-        # edges' marginal prior plus the in-window ones), the coupling and
-        # gl from the in-window edges only
-        kl = torch.arange(L, device=dev)
-        lm_all = g.obs_lm.long()
-        counted = (torch.arange(E, device=dev) < e_stop) & (lm_all >= 0) & (lm_all < L)
-        n_tot = torch.zeros(S * (L + 1), dtype=dtype, device=dev).index_add(
-            0, _flat(torch.where(counted, lm_all, L), L + 1, sess),
-            counted.to(dtype).reshape(-1)).reshape(S, L + 1)[:, :L]
-        flm = ((kl >= cfg.fix_first_landmarks) & (kl < g.n_landmarks[:, None])).to(dtype)
-        eye2 = torch.eye(2, dtype=dtype, device=dev)
-        hll_d = cfg.lm_info * n_tot * flm
-        hll = torch.where(hll_d > 0, hll_d, 1.0)[..., None, None] * eye2
+        # gauge clamping by global index (the rows gn_step clamps)
+        free = (kg >= cfg.fix_first_poses) & (kg < n)
+        fpb = free.to(dtype)[..., None, None]
+        eye3 = torch.eye(3, dtype=dtype, device=dev)
+        h_diag = h_diag * fpb + eye3 * (1.0 - fpb)
+        prev_free = torch.cat([free.new_zeros(S, 1), free[:, :-1]], dim=1)
+        h_off = h_off * (free & prev_free).to(dtype)[..., None, None]
+        gp = gp * free.to(dtype)[..., None]
         if cfg.damping:
-            hll = hll + eye2 * cfg.damping * flm[..., None, None]
-        w_e = wl3 * (jtp @ j_ll)                             # [S, EW, 3, 2]
-        wc = torch.zeros((S * W * L, 3, 2), dtype=dtype, device=dev).index_add(
-            0, _flat(local * L + ol, W * L, sess), w_e.reshape(-1, 3, 2))
-        wc = wc.reshape(S, W, L, 3, 2).permute(0, 1, 3, 2, 4).reshape(S, 3 * W, L, 2)
-        mask = free.to(dtype).repeat_interleave(3, dim=1)[..., None] * flm[:, None, :]
-        jtl = j_ll.transpose(-1, -2)
-        lrow = _flat(ol, L, sess)
-        gl = torch.zeros((S * L, 2), dtype=dtype, device=dev).index_add(
-            0, lrow, (w_l[..., None] * (jtl @ r_l[..., None])[..., 0]).reshape(-1, 2)
-        ).reshape(S, L, 2) * flm[..., None]
-        if lm_prior is not None:
-            # the marginalized edges' restoring gradient, centred at lm_prior
-            n_in = torch.zeros(S * L, dtype=dtype, device=dev).index_add(
-                0, lrow, in_win.to(dtype).reshape(-1)).reshape(S, L)
-            n_out = torch.clamp(n_tot - n_in, min=0.0)
-            gl = gl + (cfg.lm_info * n_out * flm)[..., None] * (g.lm_xy - lm_prior)
-        dp, dl = schur_solve_split(*(solve_in(x) for x in (
-            hpp, wc[..., 0] * mask, wc[..., 1] * mask, hll, gp.reshape(S, -1), gl)))
-        dp, dl = solve_out(dp), solve_out(dl)
-        lm_xy = g.lm_xy + dl
-    else:
-        c = torch.linalg.cholesky_ex(solve_in(hpp)).L
-        dp = solve_out(torch.cholesky_solve(solve_in(-gp.reshape(S, -1, 1)), c)[..., 0])
-        lm_xy = g.lm_xy
-    new_w = poses_w + dp.reshape(S, W, 3)
-    # clamped rows get an exact-zero update; wrap_angle is not a bit-exact
-    # identity in f32, so they keep their value
-    theta = torch.where(free, se2.wrap_angle(new_w[..., 2]), new_w[..., 2])
-    new_w = torch.cat([new_w[..., :2], theta[..., None]], dim=-1)
-    poses = g.poses.reshape(S * P, 3).index_put((_flat(kgl, P, sess),), new_w.reshape(-1, 3))
-    return dataclasses.replace(g, poses=poses.reshape(S, P, 3), lm_xy=lm_xy)
+            h_diag = h_diag + eye3 * cfg.damping * fpb
+
+        # one session solves unbatched (see the docstring)
+        solve_in = (lambda x: x[0]) if S == 1 else (lambda x: x)
+        solve_out = (lambda x: x[None]) if S == 1 else (lambda x: x)
+        hpp = densify_hpp(h_diag, h_off)
+        if landmarks:
+            # Hll from each landmark's total edge count (the out-of-window
+            # edges' marginal prior plus the in-window ones), the coupling and
+            # gl from the in-window edges only
+            kl = torch.arange(L, device=dev)
+            lm_all = g.obs_lm.long()
+            counted = (torch.arange(E, device=dev) < e_stop) & (lm_all >= 0) & (lm_all < L)
+            n_tot = torch.zeros(S * (L + 1), dtype=dtype, device=dev).index_add(
+                0, _flat(torch.where(counted, lm_all, L), L + 1, sess),
+                counted.to(dtype).reshape(-1)).reshape(S, L + 1)[:, :L]
+            flm = ((kl >= cfg.fix_first_landmarks) & (kl < g.n_landmarks[:, None])).to(dtype)
+            eye2 = torch.eye(2, dtype=dtype, device=dev)
+            hll_d = cfg.lm_info * n_tot * flm
+            hll = torch.where(hll_d > 0, hll_d, 1.0)[..., None, None] * eye2
+            if cfg.damping:
+                hll = hll + eye2 * cfg.damping * flm[..., None, None]
+            w_e = wl3 * (jtp @ j_ll)                             # [S, EW, 3, 2]
+            wc = torch.zeros((S * W * L, 3, 2), dtype=dtype, device=dev).index_add(
+                0, _flat(local * L + ol, W * L, sess), w_e.reshape(-1, 3, 2))
+            wc = wc.reshape(S, W, L, 3, 2).permute(0, 1, 3, 2, 4).reshape(S, 3 * W, L, 2)
+            mask = free.to(dtype).repeat_interleave(3, dim=1)[..., None] * flm[:, None, :]
+            jtl = j_ll.transpose(-1, -2)
+            lrow = _flat(ol, L, sess)
+            gl = torch.zeros((S * L, 2), dtype=dtype, device=dev).index_add(
+                0, lrow, (w_l[..., None] * (jtl @ r_l[..., None])[..., 0]).reshape(-1, 2)
+            ).reshape(S, L, 2) * flm[..., None]
+            if lm_prior is not None:
+                # the marginalized edges' restoring gradient, centred at lm_prior
+                n_in = torch.zeros(S * L, dtype=dtype, device=dev).index_add(
+                    0, lrow, in_win.to(dtype).reshape(-1)).reshape(S, L)
+                n_out = torch.clamp(n_tot - n_in, min=0.0)
+                gl = gl + (cfg.lm_info * n_out * flm)[..., None] * (g.lm_xy - lm_prior)
+            dp, dl = schur_solve_split(*(solve_in(x) for x in (
+                hpp, wc[..., 0] * mask, wc[..., 1] * mask, hll, gp.reshape(S, -1), gl)))
+            dp, dl = solve_out(dp), solve_out(dl)
+            lm_xy = g.lm_xy + dl
+        else:
+            with _fp32():
+                c = torch.linalg.cholesky_ex(solve_in(hpp)).L
+                dp = solve_out(torch.cholesky_solve(solve_in(-gp.reshape(S, -1, 1)), c)[..., 0])
+            lm_xy = g.lm_xy
+        new_w = poses_w + dp.reshape(S, W, 3)
+        # clamped rows get an exact-zero update; wrap_angle is not a bit-exact
+        # identity in f32, so they keep their value
+        theta = torch.where(free, se2.wrap_angle(new_w[..., 2]), new_w[..., 2])
+        new_w = torch.cat([new_w[..., :2], theta[..., None]], dim=-1)
+        poses = g.poses.reshape(S * P, 3).index_put((_flat(kgl, P, sess),), new_w.reshape(-1, 3))
+        return dataclasses.replace(g, poses=poses.reshape(S, P, 3), lm_xy=lm_xy)
 
 
 def optimize_window(g: FactorGraph, cfg: GNConfig, window: int, edge_window: int,
@@ -604,8 +672,8 @@ def optimize_window(g: FactorGraph, cfg: GNConfig, window: int, edge_window: int
     graph [S] takes `enable`, `end` and `end_obs` [S]: one batched step per
     iteration for all sessions, each stopping at its own iteration, and a
     disabled session comes back bit for bit."""
-    _check_precision(cfg, g.poses)
     lm_prior = g.lm_xy if landmarks else None
-    return _iterate(g, cfg, lambda gg: window_gn_step(
-        gg, cfg, window, edge_window, landmarks=landmarks, lm_prior=lm_prior,
-        end=end, end_obs=end_obs), enable)
+    with precision(cfg, g.poses):
+        return _iterate(g, cfg, lambda gg: window_gn_step(
+            gg, cfg, window, edge_window, landmarks=landmarks, lm_prior=lm_prior,
+            end=end, end_obs=end_obs), enable)

@@ -10,8 +10,9 @@ never write into the tensors of the one they were given. Counters stay on
 the device, so a masked append costs no host synchronisation.
 
 A stacked graph of S independent sessions carries a leading axis S on every
-field (the counters [S]); the validity masks below and the batched
-Gauss-Newton (`gauss_newton.gn_step` / `optimize`) take it.
+field (the counters [S]); the validity masks below, the masked appends
+`add_landmark` / `add_observation` (one row per session, `enable` [S]) and
+the batched Gauss-Newton (`gauss_newton.gn_step` / `optimize`) take it.
 """
 from __future__ import annotations
 
@@ -88,8 +89,12 @@ def empty_graph(cap: GraphCapacity, device, dtype=torch.float32) -> FactorGraph:
 def _row_index(count: torch.Tensor, cap: int) -> torch.Tensor:
     """[1] long index of the next free row, saturating at the last one. A
     one-element index (not a 0-d one, which PyTorch reads back to the host)
-    keeps the update free of device synchronisation."""
-    return torch.clamp(count, max=cap - 1).reshape(1).long()
+    keeps the update free of device synchronisation. For stacked counters
+    [S > 1], each session's row in the flattened [S * cap] rows."""
+    k = torch.clamp(count, max=cap - 1).reshape(-1).long()
+    if k.shape[0] > 1:
+        k = k + torch.arange(k.shape[0], device=k.device) * cap
+    return k
 
 
 def _set_row(x: torch.Tensor, k: torch.Tensor, value) -> torch.Tensor:
@@ -113,29 +118,39 @@ def add_pose(g: FactorGraph, pose, odo_meas, prior_info=None) -> FactorGraph:
     return g
 
 
-def _masked_row(x: torch.Tensor, k: torch.Tensor, value, en: torch.Tensor) -> torch.Tensor:
+def _masked_row(x: torch.Tensor, k: torch.Tensor, value, en: torch.Tensor,
+                stacked: bool = False) -> torch.Tensor:
     value = torch.as_tensor(value, dtype=x.dtype, device=x.device)
-    return _set_row(x, k, torch.where(en, value, x[k]))
+    if not stacked:
+        return _set_row(x, k, torch.where(en, value, x[k]))
+    flat = x.reshape(-1, *x.shape[2:])
+    en = en.reshape(-1, *([1] * (flat.dim() - 1)))
+    return _set_row(flat, k, torch.where(en, value, flat[k])).reshape(x.shape)
 
 
 def add_landmark(g: FactorGraph, xy, lm_type, enable=True) -> FactorGraph:
-    """Masked append of one landmark; no-op when `enable` is False."""
-    cap = g.lm_xy.shape[0]
+    """Masked append of one landmark; no-op when `enable` is False. On a
+    stacked graph, one landmark per session: xy [S, 2], lm_type and
+    `enable` [S]."""
+    cap = g.lm_xy.shape[-2]
     k = _row_index(g.n_landmarks, cap)
+    st = g.n_landmarks.dim() > 0
     en = torch.as_tensor(enable, device=g.lm_xy.device)
     return dataclasses.replace(
-        g, lm_xy=_masked_row(g.lm_xy, k, xy, en),
-        lm_type=_masked_row(g.lm_type, k, lm_type, en),
+        g, lm_xy=_masked_row(g.lm_xy, k, xy, en, st),
+        lm_type=_masked_row(g.lm_type, k, lm_type, en, st),
         n_landmarks=torch.clamp(g.n_landmarks + en.to(torch.int32), max=cap))
 
 
 def add_observation(g: FactorGraph, pose_idx, lm_idx, meas_xy, enable=True) -> FactorGraph:
-    """Masked append of one landmark-observation edge."""
-    cap = g.obs_pose.shape[0]
+    """Masked append of one landmark-observation edge (on a stacked graph,
+    one per session: pose_idx, lm_idx and `enable` [S], meas_xy [S, 2])."""
+    cap = g.obs_pose.shape[-1]
     k = _row_index(g.n_obs, cap)
+    st = g.n_obs.dim() > 0
     en = torch.as_tensor(enable, device=g.obs_pose.device)
     return dataclasses.replace(
-        g, obs_pose=_masked_row(g.obs_pose, k, pose_idx, en),
-        obs_lm=_masked_row(g.obs_lm, k, lm_idx, en),
-        obs_xy=_masked_row(g.obs_xy, k, meas_xy, en),
+        g, obs_pose=_masked_row(g.obs_pose, k, pose_idx, en, st),
+        obs_lm=_masked_row(g.obs_lm, k, lm_idx, en, st),
+        obs_xy=_masked_row(g.obs_xy, k, meas_xy, en, st),
         n_obs=torch.clamp(g.n_obs + en.to(torch.int32), max=cap))

@@ -11,6 +11,10 @@ stream: the blocked pipeline's block functions at one frame per block
 (`_mapping_block` for the sessions still mapping, `_loc_block` for those
 whose map is frozen) compute what `perform_keyframe` computes, and one
 read per frame brings back the [S] fallback, closure and periodic-GN flags.
+Under the scan-form mapping step (`vectorized_mapping=False`) the sessions
+still mapping take `keyframe._mapping_step` instead of `_mapping_block`: its
+loop over the observation slots runs once for all of them, each step an
+[S, L] op masked per session.
 As in the JAX package, the keyframe defers its full GNs (`defer_gn`): after
 the frame's outputs, one stacked `gauss_newton.optimize` runs the closure
 GN of the sessions that closed, and one more the full-batch periodic GN of
@@ -18,9 +22,9 @@ those that asked for it (a fixed-lag window GN runs within the frame). A
 closure frame therefore publishes from the map before its GN, the JAX
 package's documented deviation under `mapping_publish_refine`. A session
 the blocks cannot step exactly (an empty map whose first observation slot
-is invalid, or a full graph) runs that frame through `perform_keyframe`
-alone, and so does every session under the scan-form mapping step
-(`vectorized_mapping=False`), whose observation loop has no batched form.
+is invalid, or a full graph; under the scan form, whose appends saturate
+as the per-frame ones do, a full pose store alone) runs that frame through
+`perform_keyframe` alone.
 """
 from __future__ import annotations
 
@@ -32,11 +36,11 @@ from tpuslam_torch.backend import gauss_newton as gn
 from tpuslam_torch.backend.graph import GraphCapacity
 from tpuslam_torch.core.slam import checked_device
 from tpuslam_torch.frontend.blocked import (
-    _cat, _enable, _in_bounds, _loc_block, _map_outputs, _mapping_block, _patch_last,
-    _periodic_fires, _read_flags, _rows_at,
+    _I32, _cat, _enable, _in_bounds, _loc_block, _map_outputs, _mapping_block, _packet_series,
+    _patch_last, _periodic_fires, _pose_insert_plan, _read_flags, _rows_at, _scatter_poses,
 )
 from tpuslam_torch.frontend.keyframe import (
-    _check_supported, _gn_config, perform_keyframe, periodic_gn,
+    KeyframeOutputs, _check_supported, _gn_config, _mapping_step, perform_keyframe, periodic_gn,
 )
 from tpuslam_torch.frontend.pipeline import empty_outputs
 from tpuslam_torch.frontend.state import (
@@ -57,6 +61,30 @@ def _where(mask, a, b):
     return torch.where(mask.reshape(-1, *([1] * (a.dim() - 1))), a, b)
 
 
+def _scan_frame(state: SlamState, obs, valid, poses, okp, cfg: SlamConfig):
+    """`_mapping_block`'s (new_state, outputs [S, 1], aux) for one frame
+    under the scan-form mapping step: the pose insertion of the blocks,
+    then `keyframe._mapping_step` for the sessions of `okp` [S, 1] (the
+    others come back unchanged). obs [S, 1, N, 4], valid [S, 1, N], poses
+    [S, 1, 3]. Falls back where the insertion cannot match `graph.add_pose`
+    (a full pose store)."""
+    g0 = state.graph
+    run = okp[:, 0]
+    pose_idx, odo = _pose_insert_plan(g0, poses, okp)
+    st = dataclasses.replace(state, graph=_scatter_poses(g0, poses, odo, pose_idx, okp, cfg),
+                             keyframe_count=state.keyframe_count + run.to(_I32))
+    st, closure = _mapping_step(st, obs[:, 0], valid[:, 0], poses[:, 0], pose_idx[:, 0], cfg,
+                                enable=run)
+    cur, n_lm = st.current_cone_index[:, None], st.graph.n_landmarks[:, None]
+    az, dist, ctype = _packet_series(st.graph.lm_xy, st.graph.lm_type, n_lm, cur, poses, cfg)
+    outs = KeyframeOutputs(pose=poses, cone_azimuth=az, cone_distance=dist, cone_type=ctype,
+                           send=torch.zeros_like(okp), loop_closed=closure[:, None],
+                           n_landmarks=n_lm)
+    fallback = (g0.n_poses >= g0.poses.shape[-2]) & run
+    return st, outs, dict(fallback=fallback, closure_any=closure, cur_series=cur,
+                          n_lm_series=n_lm, ins=okp)
+
+
 def _batched_frame(states: SlamState, frozen, obs, valid, pose, cfg: SlamConfig):
     """One keyframe of every session, `perform_keyframe(defer_gn=True)`'s
     results for each: obs [S, 1, N, 4], valid [S, 1, N], pose [S, 1, 3];
@@ -69,7 +97,10 @@ def _batched_frame(states: SlamState, frozen, obs, valid, pose, cfg: SlamConfig)
     okp = _in_bounds(pose, cfg)
     none = torch.zeros_like(okp)
     aux = None
-    if not all(frozen):
+    if not all(frozen) and not cfg.vectorized_mapping:
+        ns, outs, aux = _scan_frame(states, obs, valid, pose, okp & ~fz[:, None], cfg)
+        ins, fallback, closure = aux["ins"], aux["fallback"], aux["closure_any"]
+    elif not all(frozen):
         ns, outs, aux = _mapping_block(states, obs, valid, pose, okp & ~fz[:, None],
                                        valid[..., 0], none, cfg)
         ins, fallback, closure = aux["ins"], aux["fallback"], aux["closure_any"]
@@ -137,11 +168,8 @@ def run_sequences_batched(states: SlamState, obs_seq, valid_seq, pose_seq, cfg: 
     parts = []
     for t in range(T):
         f = slice(t, t + 1)
-        if cfg.vectorized_mapping:
-            new, outs, closed, periodic, fell = _batched_frame(
-                states, frozen, obs_seq[:, f], valid_seq[:, f], pose_seq[:, f], cfg)
-        else:
-            new, outs, closed, periodic, fell = states, None, [False] * S, [False] * S, [True] * S
+        new, outs, closed, periodic, fell = _batched_frame(
+            states, frozen, obs_seq[:, f], valid_seq[:, f], pose_seq[:, f], cfg)
         alone = {}
         for s in (s for s in range(S) if fell[s]):
             st, alone[s], wc, wp = perform_keyframe(session_state(states, s), obs_seq[s, t],

@@ -49,8 +49,8 @@ def sharded_blocks(g: FactorGraph, cfg: gn.GNConfig, mesh):
 def distributed_gn_step(g: FactorGraph, cfg: gn.GNConfig, mesh) -> FactorGraph:
     """One GN iteration with the landmark-edge work sharded over `mesh`:
     `gauss_newton.gn_step`'s update up to the order of the sums."""
-    gn._check_precision(cfg, g.poses)
-    return gn.solve_blocks(g, cfg, sharded_blocks(g, cfg, mesh))
+    with gn.precision(cfg, g.poses):
+        return gn.solve_blocks(g, cfg, sharded_blocks(g, cfg, mesh))
 
 
 def distributed_optimize(g: FactorGraph, cfg: gn.GNConfig, mesh) -> FactorGraph:

@@ -388,14 +388,14 @@ def fuse_sessions(stacked: FactorGraph, cfg: gn.GNConfig | None = None, gate: fl
     `fuse_graphs` report, `tforms`, `n_align_matched` and `solver`.
 
     With `mesh` the dedup is landmark-sharded over its 'edges' axis and the
-    joint GN is `distributed_optimize` over it (solver 'auto'). Raises
-    `ValueError` for an unknown solver, and `NotImplementedError` for the
-    chain solvers 'dd', 'hier' and 'hier3', which are not ported yet."""
+    joint GN is `distributed_optimize` over it (solver 'auto'). `solver`
+    'dd', 'hier' or 'hier3' runs the joint GN through
+    `chain.chain_optimize` over `solve_mesh` (a ('chain',) mesh; a fresh
+    one over every rank of the world when None), `tray` ranks per group for
+    the hierarchical solves; the fused pose capacity S·P must divide by its
+    ranks. Raises `ValueError` for an unknown solver."""
     if solver not in ("auto", "dd", "hier", "hier3"):
         raise ValueError(f"unknown fusion solver {solver!r} (auto | dd | hier | hier3)")
-    if cfg is not None and solver != "auto":
-        raise NotImplementedError(f"fuse_sessions(solver={solver!r}): the chain solvers are "
-                                  "not ported to tpuslam_torch yet")
     s = stacked.poses.shape[0]
     if align:
         trim = 0.75 if robust else 0.0
@@ -420,7 +420,13 @@ def fuse_sessions(stacked: FactorGraph, cfg: gn.GNConfig | None = None, gate: fl
     fused, report = fuse_graphs(stacked, gate, mesh=mesh, dedup_iters=dedup_iters,
                                 lm_info=lm_info)
     report = dict(report, tforms=tforms, n_align_matched=n_matched, solver=solver)
-    if cfg is not None and mesh is not None:
+    if cfg is not None and solver != "auto":
+        from tpuslam_torch.parallel.chain import chain_optimize
+        if solve_mesh is None:
+            from tpuslam_torch.parallel.mesh import make_chain_mesh
+            solve_mesh = make_chain_mesh(device_type=fused.poses.device.type)
+        fused = chain_optimize(fused, cfg, solve_mesh, solver=solver, tray=tray)
+    elif cfg is not None and mesh is not None:
         fused = distributed_optimize(fused, cfg, mesh)
     elif cfg is not None:
         fused = gn.optimize(fused, cfg)

@@ -38,7 +38,6 @@ def multisession_optimize(stacked: FactorGraph, cfg: gn.GNConfig, mesh,
     """GN on S stacked sessions over `mesh`: `iterations` (default
     `cfg.iterations`) steps of every session, no early exit. S must divide
     by the 'sessions' axis and the edge capacity by the 'edges' axis."""
-    gn._check_precision(cfg, stacked.poses)
     i, n = shard(mesh, "sessions")
     S = stacked.poses.shape[0]
     if S % n:
@@ -48,7 +47,8 @@ def multisession_optimize(stacked: FactorGraph, cfg: gn.GNConfig, mesh,
                        for f in dataclasses.fields(FactorGraph)})
     # the JAX package's multi-session solve takes the library's Cholesky
     cfg = dataclasses.replace(cfg, use_cholesky_kernel=False)
-    for _ in range(cfg.iterations if iterations is None else iterations):
-        g = gn.solve_blocks(g, cfg, sharded_blocks(g, cfg, mesh))
+    with gn.precision(cfg, g.poses):
+        for _ in range(cfg.iterations if iterations is None else iterations):
+            g = gn.solve_blocks(g, cfg, sharded_blocks(g, cfg, mesh))
     return dataclasses.replace(stacked, poses=all_gather(g.poses, mesh, "sessions"),
                                lm_xy=all_gather(g.lm_xy, mesh, "sessions"))
