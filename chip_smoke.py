@@ -116,6 +116,18 @@ Phases, in order; the first that fails ends the run with exit code 1:
                held to the single-device `gauss_newton.optimize` within the
                JAX tests' bounds (CHAIN_ATOL), no kernel launched (the
                solvers factor with `cholesky_ex`, as the JAX package's).
+  resident — the map-resident online pass (`run_pass_resident_online`) on
+               the bench lap in RESIDENT_RUNS' five configurations, on a
+               one-rank NCCL ('map',) mesh and in a spawned world of
+               RESIDENT_RANKS gloo ranks on cuda:0 (64 landmark slots each),
+               each held to the dense `run_pass_blocked` of its
+               configuration and block on the card (tests/test_resident_
+               online.py's rules) and to REFERENCE's counts where they
+               apply, the world to the one-rank runs; every returned shard
+               of Lb rows; no kernel launched (the pass factors with
+               `cholesky_ex` and gates densely, as the JAX package's);
+               the collectives per keyframe of each run, and the
+               RESIDENT_TIMED laps timed beside their dense laps.
 It prints a `{"kernels": [...]}` line, the card's name and power limit as
 nvidia-smi gives them, and last `{"ok": true, "device": {...}}`. Without a
 CUDA device it fails before any phase. It imports no JAX.
@@ -396,6 +408,16 @@ CHAIN_SOLVERS = ("replicated", "dd", "resident", "hier", "hier3")
 CHAIN_ATOL = {"synth64": dict(replicated=2e-3, dd=2e-3, resident=2e-3, hier=5e-3, hier3=5e-3),
               "fused": dict(replicated=3e-3, dd=3e-3, resident=3e-3, hier=1e-2, hier3=1e-2),
               "fuse_sessions": 1e-2}
+# Phase `resident`: the map-resident online pass on the bench lap, as
+# tests/test_resident_online.py runs it: name -> (configuration, block, the
+# REFERENCE key whose counts it is held to, or None). The improved runs are
+# held to the dense pass by the JAX tests' structure rule (landmarks exact,
+# edges within 2, values within RESIDENT_STRUCT_ATOL), the others by their
+# `_compare` (decisions exact, values within RESIDENT_ATOL)
+RESIDENT_RANKS, RESIDENT_TIMEOUT_S = 4, 300.0
+RESIDENT_ATOL, RESIDENT_STRUCT_ATOL = 2e-3, 5e-2
+RESIDENT_STRUCTURE = ("I1_b16", "midblock8")
+RESIDENT_TIMED = ("first", "I1_b16")     # the runs timed beside their dense laps
 # phase 5: the closure GN under 'high' (TF32) within the JAX package's
 # documented ~1e-3 relative error of 'highest'; 'default' (bf16) reported
 GN_PRECISION_RTOL = 1e-3
@@ -408,6 +430,16 @@ def configs():
     return {"first": SlamConfig(capacity=CAP),
             "nearest": SlamConfig(capacity=CAP, association="nearest",
                                   use_pallas_association=True)}
+
+
+def resident_runs():
+    """RESIDENT_RUNS: name -> (configuration, block, REFERENCE key or None)."""
+    return {"first": (SlamConfig(capacity=CAP), 16, "first"),
+            "nearest": (SlamConfig(capacity=CAP, association="nearest"), 16, "nearest"),
+            "I1_b16": (SlamConfig.improved(capacity=CAP, periodic_gn_every=16), 16, "I1_b16"),
+            "mahalanobis": (SlamConfig.improved(capacity=CAP, association="mahalanobis",
+                                                periodic_gn_every=0), 16, None),
+            "midblock8": (SlamConfig.improved(capacity=CAP, periodic_gn_every=8), 32, None)}
 
 
 def improved_configs():
@@ -1223,6 +1255,34 @@ def _to(x, device):
     return x
 
 
+def spawn_world(rank_fn, nprocs: int, timeout_s: float, work, what: str):
+    """A world of `nprocs` ranks spawned on this machine, each running
+    `rank_fn(rank, port, workdir)` on `work` (saved to `workdir` on the
+    host) and saving its result there; killed past `timeout_s` + 60 s.
+    Returns (each rank's result on cuda, the wall time in s, spawn
+    included)."""
+    import shutil
+    from tpuslam_torch.parallel.mesh import free_port
+    workdir = tempfile.mkdtemp(prefix="chip_smoke_world_")
+    try:
+        torch.save(_to(work, "cpu"), os.path.join(workdir, "work.pt"))
+        t0 = time.perf_counter()
+        ctx = torch.multiprocessing.start_processes(
+            rank_fn, args=(free_port(), workdir), nprocs=nprocs, join=False,
+            start_method="spawn")
+        deadline = t0 + timeout_s + 60.0
+        while not ctx.join(timeout=5):
+            if time.perf_counter() > deadline:
+                for p in ctx.processes:
+                    p.kill()
+                raise AssertionError(f"{what}: ranks ran past {timeout_s + 60} s")
+        wall = time.perf_counter() - t0
+        return [_to(torch.load(os.path.join(workdir, f"rank{r}.pt"), weights_only=False), "cuda")
+                for r in range(nprocs)], wall
+    finally:
+        shutil.rmtree(workdir, ignore_errors=True)
+
+
 def gloo_rank(rank, port, workdir):
     """One rank of phase `parallel`'s gloo world on cuda:0: the mesh paths
     of `gloo_paths` on the work `workdir` holds, its results and kernel
@@ -1390,6 +1450,107 @@ def chain_rank(rank, port, workdir):
     finally:
         torch.distributed.destroy_process_group()
     torch.save(_to(out, "cpu"), os.path.join(workdir, f"rank{rank}.pt"))
+
+
+def resident_paths(mesh, ins):
+    """Phase `resident`'s passes over the ('map',) `mesh`: each of
+    `resident_runs` through `run_pass_resident_online`, with the number of
+    collectives this rank called in it; and the shapes of the landmark
+    blocks `resident_online_core` returns for compat 'first'."""
+    from tpuslam_torch.parallel import resident_online as RO
+    from tpuslam_torch.parallel.collectives import counting
+    out = {"runs": {}, "collectives": {}}
+    for name, (cfg, block, _) in resident_runs().items():
+        with counting() as rec:
+            out["runs"][name] = RO.run_pass_resident_online(*ins, cfg, mesh, block=block)
+        out["collectives"][name] = {k: v["count"] for k, v in rec.items()}
+    cfg, dev = SlamConfig(capacity=CAP), ins[0].device
+    o_p, v_p, p_p = blocked_mod._pad_inputs(*ins, cfg, 16)
+    state = initial_state(dataclasses.replace(CAP, max_landmarks=1), dev)
+    nc, _ = blocked_mod._pick_compact(v_p, state)
+    *_, lx, lt, li, _, done = RO.resident_online_core(
+        state, *RO.initial_shards(CAP.max_landmarks, mesh, device=dev), o_p, v_p, p_p, cfg,
+        mesh, 16, compact_obs=nc)
+    out["shards"] = ([tuple(x.shape) for x in (lx, lt, li)],
+                     all(x.device == dev for x in (lx, lt, li)), done == o_p.shape[0])
+    return out
+
+
+def resident_rank(rank, port, workdir):
+    """One rank of phase `resident`'s gloo world on cuda:0: `resident_paths`
+    over a ('map',) mesh of RESIDENT_RANKS, its results and kernel launch
+    counts saved in `workdir`."""
+    from tpuslam_torch.parallel.mesh import initialize_distributed, make_map_mesh
+    torch.backends.cuda.matmul.allow_tf32 = False
+    initialize_distributed("gloo", f"localhost:{port}", RESIDENT_RANKS, rank,
+                           timeout_s=RESIDENT_TIMEOUT_S)
+    try:
+        ins = _to(torch.load(os.path.join(workdir, "work.pt"), weights_only=False), "cuda")
+        A.launches = C.launches = 0
+        out = resident_paths(make_map_mesh(RESIDENT_RANKS, device_type="cuda"), ins)
+        torch.cuda.synchronize()
+        out["launches"] = {"assoc": A.launches, "cholesky": C.launches}
+    finally:
+        torch.distributed.destroy_process_group()
+    torch.save(_to(out, "cpu"), os.path.join(workdir, f"rank{rank}.pt"))
+
+
+def compare_resident(what, name, got, want):
+    """A resident lap against the dense lap of its configuration, both on
+    the card, by tests/test_resident_online.py's rules: the improved runs
+    (RESIDENT_STRUCTURE) closed, landmark count exact, edges within 2,
+    landmarks and published poses within RESIDENT_STRUCT_ATOL; the others
+    with every decision (counts, flags, edges, landmark types, published
+    discrete outputs) exact and values within RESIDENT_ATOL. Returns the
+    largest value difference (m)."""
+    (sa, oa), (sb, ob) = got, want
+    ga, gb = sa.graph, sb.graph
+    nl, n, npp = int(gb.n_landmarks), int(gb.n_obs), int(gb.n_poses)
+    if name in RESIDENT_STRUCTURE:
+        if not (bool(sa.loop_closure_complete) and bool(sb.loop_closure_complete)):
+            raise AssertionError(f"{what}: the loop did not close")
+        if int(ga.n_landmarks) != nl or abs(int(ga.n_obs) - n) > 2:
+            raise AssertionError(f"{what}: {int(ga.n_landmarks)} landmarks and {int(ga.n_obs)} "
+                                 f"edges, the dense lap {nl} and {n}")
+        pairs, atol = ((ga.lm_xy[:nl], gb.lm_xy[:nl]), (oa.pose, ob.pose)), RESIDENT_STRUCT_ATOL
+    else:
+        for k in ("n_landmarks", "n_obs", "n_poses"):
+            if int(getattr(ga, k)) != int(getattr(gb, k)):
+                raise AssertionError(f"{what}: {k} {int(getattr(ga, k))}, dense "
+                                     f"{int(getattr(gb, k))}")
+        for k in ("loop_closure_complete", "current_cone_index"):
+            if int(getattr(sa, k)) != int(getattr(sb, k)):
+                raise AssertionError(f"{what}: {k} differs from the dense lap")
+        same = (torch.equal(ga.obs_lm[:n], gb.obs_lm[:n])
+                and torch.equal(ga.obs_pose[:n], gb.obs_pose[:n])
+                and torch.equal(ga.lm_type[:nl], gb.lm_type[:nl])
+                and all(torch.equal(getattr(oa, f), getattr(ob, f))
+                        for f in ("send", "loop_closed", "n_landmarks", "cone_type")))
+        if not same:
+            raise AssertionError(f"{what}: a decision differs from the dense lap")
+        pairs = ((ga.lm_xy[:nl], gb.lm_xy[:nl]), (ga.poses[:npp], gb.poses[:npp]),
+                 (oa.pose, ob.pose), (oa.cone_azimuth, ob.cone_azimuth),
+                 (oa.cone_distance, ob.cone_distance))
+        atol = RESIDENT_ATOL
+    err = max(float((a - b).abs().max()) for a, b in pairs)
+    if not err <= atol:
+        raise AssertionError(f"{what}: values {err:.3g} from the dense lap (atol {atol})")
+    return err
+
+
+def check_resident_counts(what, name, ref, metrics):
+    """REFERENCE[ref]'s counts: closure frame and landmarks exact; edges,
+    sends and the current cone exact for compat, edges within 2 for the
+    improved runs (the structure rule)."""
+    want = REFERENCE[ref]
+    structure = name in RESIDENT_STRUCTURE
+    keys = ("closure_frame", "n_landmarks") if structure else \
+        ("closure_frame", "n_landmarks", "n_obs", "sends", "current_cone_index")
+    bad = {k: (metrics[k], want[k]) for k in keys if metrics[k] != want[k]}
+    if structure and abs(metrics["n_obs"] - want["n_obs"]) > 2:
+        bad["n_obs"] = (metrics["n_obs"], want["n_obs"])
+    if bad:
+        raise AssertionError(f"{what}: (got, JAX package) {bad}")
 
 
 def compare_mesh_lap(what, got, want):
@@ -2207,16 +2368,19 @@ class Smoke:
         finally:
             torch.distributed.destroy_process_group()
 
-    def parallel_row(self, what: str, fn, phase: str = "parallel") -> float:
+    def parallel_row(self, what: str, fn, phase: str = "parallel", frames=None) -> float:
         """One timed row of phase `parallel` (or `phase`): median of 3 calls
         (CUDA events; the caller's checked run was the warm-up), and one
-        call under the profiler."""
+        call under the profiler; its launches and reads also per keyframe
+        when the call runs `frames` of them."""
         calls = sorted(cuda_ms(fn, reps=1, warmup=False) for _ in range(3))
         ms = calls[1]
         busy, kernels, reads = profile_counts(fn)
+        per = (f" ({kernels / frames:.1f} and {reads / frames:.2f} per keyframe)"
+               if frames else "")
         self.log(f"{phase} timing: {what}: median {ms:.2f} ms of 3 (min {calls[0]:.2f}, max "
                  f"{calls[2]:.2f}), device busy {busy:.2f} ms ({100 * busy / ms:.1f}%), "
-                 f"{kernels} kernel launches, {reads} device-to-host reads [{self.card}]")
+                 f"{kernels} kernel launches, {reads} device-to-host reads{per} [{self.card}]")
         return ms
 
     def recording_assoc(self, shapes):
@@ -2551,9 +2715,7 @@ class Smoke:
         over 'sessions', the dedup over 'edges'. Each rank's results are held
         to the one-rank run of the same paths: decisions exact, the GN
         within the JAX test's 5e-4, the fleet's values within BATCHED_ATOL."""
-        import shutil
         from tpuslam_torch.parallel import associate_sharded
-        from tpuslam_torch.parallel.mesh import free_port
         from tpuslam_torch.ops.association import associate
         work = {k: self.par[k] for k in ("graph", "gn_cfg", "fleet_cfg", "dedup_in")}
         S = self.par["fleet_in"][0].shape[0]
@@ -2568,24 +2730,7 @@ class Smoke:
                     and torch.equal(idx[matched], dense[k][0][matched])):
                 raise AssertionError(f"gloo: one-rank associate_sharded {k} differs from the "
                                      "dense association")
-        workdir = tempfile.mkdtemp(prefix="chip_smoke_gloo_")
-        try:
-            torch.save(_to(work, "cpu"), os.path.join(workdir, "work.pt"))
-            t0 = time.perf_counter()
-            ctx = torch.multiprocessing.start_processes(
-                gloo_rank, args=(free_port(), workdir), nprocs=GLOO_RANKS, join=False,
-                start_method="spawn")
-            deadline = t0 + GLOO_TIMEOUT_S + 60.0
-            while not ctx.join(timeout=5):
-                if time.perf_counter() > deadline:
-                    for p in ctx.processes:
-                        p.kill()
-                    raise AssertionError(f"gloo world: ranks ran past {GLOO_TIMEOUT_S + 60} s")
-            wall = time.perf_counter() - t0
-            ranks = [_to(torch.load(os.path.join(workdir, f"rank{r}.pt"), weights_only=False),
-                         "cuda") for r in range(GLOO_RANKS)]
-        finally:
-            shutil.rmtree(workdir, ignore_errors=True)
+        ranks, wall = spawn_world(gloo_rank, GLOO_RANKS, GLOO_TIMEOUT_S, work, "gloo world")
         one_st, one_outs, one_done = one["fleet"]
         for r, got in enumerate(ranks):
             what = f"gloo rank {r}"
@@ -2739,27 +2884,8 @@ class Smoke:
         `chain_paths` over a chain mesh of CHAIN_RANKS, each rank's results
         held to the single-device references, its solves timed on the host
         clock, its payloads per iteration against the analytic ones."""
-        import shutil
-        from tpuslam_torch.parallel.mesh import free_port
-        workdir = tempfile.mkdtemp(prefix="chip_smoke_chain_")
-        try:
-            torch.save(_to(work, "cpu"), os.path.join(workdir, "work.pt"))
-            t0 = time.perf_counter()
-            ctx = torch.multiprocessing.start_processes(
-                chain_rank, args=(free_port(), workdir), nprocs=CHAIN_RANKS, join=False,
-                start_method="spawn")
-            deadline = t0 + CHAIN_TIMEOUT_S + 60.0
-            while not ctx.join(timeout=5):
-                if time.perf_counter() > deadline:
-                    for p in ctx.processes:
-                        p.kill()
-                    raise AssertionError(f"chain gloo world: ranks ran past "
-                                         f"{CHAIN_TIMEOUT_S + 60} s")
-            wall = time.perf_counter() - t0
-            ranks = [_to(torch.load(os.path.join(workdir, f"rank{r}.pt"), weights_only=False),
-                         "cuda") for r in range(CHAIN_RANKS)]
-        finally:
-            shutil.rmtree(workdir, ignore_errors=True)
+        ranks, wall = spawn_world(chain_rank, CHAIN_RANKS, CHAIN_TIMEOUT_S, work,
+                                  "chain gloo world")
         for r, got in enumerate(ranks):
             what = f"gloo rank {r} of {CHAIN_RANKS}"
             self.check_chain(what, got["graphs"], got["fuse_sessions"], work, ref,
@@ -2771,6 +2897,91 @@ class Smoke:
                      + f" ms [{self.card}]")
         self.log(f"chain: gloo world of {CHAIN_RANKS} ranks on cuda:0 in {wall:.1f} s (spawn "
                  "included)")
+
+    # -- after chain
+    def resident(self):
+        """The map-resident online pass (`resident_runs`) on the bench lap:
+        the dense `run_pass_blocked` of each configuration on the card, then
+        the resident pass on a one-rank NCCL ('map',) mesh, held to it
+        (`compare_resident`) and to REFERENCE's counts, no kernel launched,
+        the returned blocks of Lb rows, each run's collectives per keyframe;
+        the RESIDENT_TIMED laps timed beside their dense ones (CUDA events,
+        median of 3 after the checked run; one profiled call each). Then
+        the same passes in a world of RESIDENT_RANKS gloo ranks on cuda:0."""
+        from tpuslam_torch.parallel.mesh import initialize_distributed, make_map_mesh
+        from tpuslam_torch.parallel.resident_online import run_pass_resident_online
+        ins = inputs(self.scen, "cuda")
+        t = ins[0].shape[0]
+        t0 = time.perf_counter()
+        dense = {name: run_pass_blocked(*ins, cfg, block=block)
+                 for name, (cfg, block, _) in resident_runs().items()}
+        self.log(f"resident: the dense laps in {time.perf_counter() - t0:.1f} s")
+        initialize_distributed("nccl")
+        try:
+            mesh = make_map_mesh(1, device_type="cuda")
+            A.launches = C.launches = 0
+            t0 = time.perf_counter()
+            one = resident_paths(mesh, ins)
+            torch.cuda.synchronize()
+            self.log(f"resident: the resident laps on one NCCL rank in "
+                     f"{time.perf_counter() - t0:.1f} s")
+            launches = {"assoc": A.launches, "cholesky": C.launches}
+            self.check_resident("one NCCL rank", one, dense, launches, CAP.max_landmarks)
+            for name, calls in one["collectives"].items():
+                self.log(f"resident: {name}: {sum(calls.values()) / t:.3f} collectives per "
+                         "keyframe on one NCCL rank " + json.dumps(calls))
+            for name in RESIDENT_TIMED:
+                cfg, block, _ = resident_runs()[name]
+                ms = self.parallel_row(
+                    f"resident {name}, block {block}, D = 1",
+                    functools.partial(run_pass_resident_online, *ins, cfg, mesh, block=block),
+                    phase="resident", frames=t)
+                dense_ms = self.parallel_row(
+                    f"dense blocked {name}, block {block}",
+                    functools.partial(run_pass_blocked, *ins, cfg, block=block),
+                    phase="resident", frames=t)
+                self.log(f"resident timing: {name} at block {block}: {ms:.2f} ms per lap on one "
+                         f"NCCL rank against {dense_ms:.2f} ms dense ({ms / dense_ms:.2f}x) "
+                         f"[{self.card}]")
+        finally:
+            torch.distributed.destroy_process_group()
+        self.resident_gloo(ins, one)
+
+    def check_resident(self, what, got, dense, launches, lb):
+        """Each resident lap against the dense lap and REFERENCE's counts;
+        no kernel launched; the core's blocks of `lb` rows on the card."""
+        if any(launches.values()):
+            raise AssertionError(f"resident {what}: kernel launches {launches}")
+        shapes, on_cuda, complete = got["shards"]
+        if shapes != [(lb, 2), (lb,), (lb, 3)] or not on_cuda or not complete:
+            raise AssertionError(f"resident {what}: blocks {shapes} on the card {on_cuda}, "
+                                 f"complete {complete}; want {lb} rows")
+        for name, (cfg, block, ref) in resident_runs().items():
+            err = compare_resident(f"resident {what} {name}", name, got["runs"][name],
+                                   dense[name])
+            metrics = lap_metrics(self.track, self.scen, *got["runs"][name])
+            if ref is not None:
+                check_resident_counts(f"resident {what} {name}", name, ref, metrics)
+            self.log(f"resident: {what}, {name} at block {block}: " + json.dumps(metrics)
+                     + f"; held to the dense lap (max value difference {err:.3g})"
+                     + (f" and to REFERENCE[{ref!r}]'s counts" if ref else "")
+                     + f"; blocks of {lb} rows; kernel launches {launches}")
+
+    def resident_gloo(self, ins, one):
+        """RESIDENT_RANKS gloo ranks on cuda:0 (spawned; the kernels built):
+        `resident_paths` over a ('map',) mesh of RESIDENT_RANKS, every
+        rank's laps held to the one-rank laps by the same rules, its blocks
+        of CAP.max_landmarks / RESIDENT_RANKS rows."""
+        ranks, wall = spawn_world(resident_rank, RESIDENT_RANKS, RESIDENT_TIMEOUT_S, ins,
+                                  "resident gloo world")
+        for r, got in enumerate(ranks):
+            self.check_resident(f"gloo rank {r} of {RESIDENT_RANKS}", got, one["runs"],
+                                got["launches"], CAP.max_landmarks // RESIDENT_RANKS)
+            if got["collectives"] != one["collectives"]:
+                self.log(f"resident: gloo rank {r}: collectives {got['collectives']} against "
+                         f"one rank's {one['collectives']}")
+        self.log(f"resident: gloo world of {RESIDENT_RANKS} ranks on cuda:0 in {wall:.1f} s "
+                 f"(spawn included) [{self.card}]")
 
     @staticmethod
     def laps(obs, valid, poses):
@@ -3270,7 +3481,8 @@ def main() -> int:
     smoke = Smoke()
     phases = (smoke.build, smoke.kernels_vs_plain, smoke.compat, smoke.kernel_association,
               smoke.blocked, smoke.improved, smoke.batched, smoke.fusion, smoke.service,
-              smoke.lidar, smoke.closure_solve, smoke.timing, smoke.parallel, smoke.chain)
+              smoke.lidar, smoke.closure_solve, smoke.timing, smoke.parallel, smoke.chain,
+              smoke.resident)
     if sys.argv[1:] == ["--assoc-plans"]:
         phases = (smoke.build, smoke.assoc_plans, smoke.assoc_host)
     elif sys.argv[1:]:

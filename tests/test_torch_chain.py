@@ -19,6 +19,12 @@ collectives count in one iteration (`instrument.collective_payload_bytes`
 over two iterations less one) equal what the JAX package's jaxpr walker
 counts for the same step, kind by kind, and the analytic
 `*_comm_bytes_per_iteration` / `comm_model` figures.
+
+The same world runs the map-resident online pass (`parallel.resident_online`)
+on ('map',) meshes over the first 1, 2, 4 and 8 ranks, on a small trackdrive
+lap (tests/test_instrument.py:200-210's), against the port's dense
+`run_pass_blocked` (rank 0) and the JAX package's resident pass on its
+8-device mesh (this process), with tests/test_resident_online.py's rules.
 """
 import dataclasses
 import os
@@ -41,6 +47,17 @@ FUSED_RESIDENT_ATOL, FUSED_HIER_ATOL, REGISTRY_ATOL = 3e-3, 1e-2, 1e-2
 # whose sums run in other orders
 JAX_ATOL = 1e-3
 SOLVERS = (("dd", None), ("hier", 2), ("hier", None), ("hier3", None))
+# the resident online pass (tests/test_resident_online.py): name -> (config,
+# block); compat and Mahalanobis are held to the dense pass by `_ro_compare`
+# within RO_ATOL, the improved ones by `_ro_structure` within RO_STRUCT_ATOL
+RO_CONFIGS = {"first": ({}, 16), "nearest": (dict(association="nearest"), 16),
+              "mahalanobis": (dict(improved=True, association="mahalanobis",
+                                   periodic_gn_every=0), 16),
+              "improved": (dict(improved=True, periodic_gn_every=16), 16),
+              "midblock": (dict(improved=True, periodic_gn_every=8), 32)}
+RO_STRUCTURE = ("improved", "midblock")
+RO_ATOL, RO_STRUCT_ATOL = 2e-3, 5e-2
+RO_MESHES = (1, 2, 4, 8)
 
 
 @pytest.fixture(autouse=True, scope="module")
@@ -191,6 +208,98 @@ def _rank_cases(inputs):
     return out
 
 
+def _ro_config(name, dims, **kw):
+    from tpuslam_torch.backend.graph import GraphCapacity
+    from tpuslam_torch.runtime.config import SlamConfig
+    opts, block = RO_CONFIGS[name]
+    opts = {**opts, **kw}
+    make = SlamConfig.improved if opts.pop("improved", False) else SlamConfig
+    return make(capacity=GraphCapacity(*dims), **opts), block
+
+
+def _ro_np(run):
+    from tpuslam_torch.frontend.state import state_to_numpy
+    st, outs = run
+    return state_to_numpy(st), _np(dataclasses.asdict(outs))
+
+
+def _resident_online_cases(ro):
+    """The resident online pass on ('map',) meshes of 1, 2, 4 and 8 ranks
+    (every rank makes every mesh; a rank past one runs nothing on it).
+    Returns (results every rank holds alike, results per mesh size of the
+    ranks in it)."""
+    from tpuslam_torch.backend.graph import GraphCapacity
+    from tpuslam_torch.frontend.blocked import _pad_inputs, _pick_compact, run_pass_blocked
+    from tpuslam_torch.frontend.state import initial_state
+    from tpuslam_torch.parallel import resident_online as RO
+    from tpuslam_torch.parallel import collectives as C
+    from tpuslam_torch.parallel.mesh import make_map_mesh
+
+    rank = dist.get_rank()
+    meshes = {d: make_map_mesh(d, device_type="cpu") for d in RO_MESHES}
+    ins = [torch.from_numpy(ro[k]) for k in ("obs", "valid", "poses")]
+    dims = ro["dims"]
+    res = {"d8": {}, "single": {"dense": {}, "d1": {}}}
+    for name in RO_CONFIGS:
+        cfg, block = _ro_config(name, dims)
+        res["d8"][name] = _ro_np(RO.run_pass_resident_online(*ins, cfg, meshes[8], block=block))
+        if rank == 0:
+            res["single"]["dense"][name] = _ro_np(run_pass_blocked(*ins, cfg, block=block))
+            res["single"]["d1"][name] = _ro_np(RO.run_pass_resident_online(*ins, cfg, meshes[1],
+                                                                           block=block))
+
+    # a fallback mid-lap: a landmark capacity of 64 for a lap of ~110
+    small = (dims[0], 64, dims[2])
+    cfg, block = _ro_config("first", small)
+    res["fallback"] = _ro_np(RO.run_pass_resident_online(*ins, cfg, meshes[8], block=block))
+    if rank == 0:
+        res["single"]["fallback"] = _ro_np(run_pass_blocked(*ins, cfg, block=block))
+    # 24 slots per rank: a sharded map of 192 > max_landmarks
+    cfg, block = _ro_config("first", dims)
+    res["lm_per_device"] = _ro_np(RO.run_pass_resident_online(*ins, cfg, meshes[8], block=block,
+                                                              lm_per_device=24))
+    try:
+        RO.run_pass_resident_online(*ins, _ro_config("first", (dims[0], 100, dims[2]))[0],
+                                    meshes[8], block=block)
+        res["refuse_l_mod_d"] = None
+    except ValueError as e:
+        res["refuse_l_mod_d"] = str(e)
+    try:
+        make_map_mesh(8, device_type="cuda")
+        res["cuda_refused"] = None
+    except RuntimeError as e:
+        res["cuda_refused"] = str(e)
+    # the branch-agreement rule: agreed flags come back, differing ones
+    # raise on every rank
+    res["agreed"] = RO._agreed([torch.tensor([3, 1]), torch.tensor(7)], meshes[8], "map")
+    try:
+        RO._agreed([torch.tensor(rank % 2)], meshes[8], "map")
+        res["disagreed"] = None
+    except RuntimeError as e:
+        res["disagreed"] = str(e)
+
+    # per mesh size: compat 'first' through the pass, and the core's payload
+    # and shard shapes
+    per_d = {}
+    o_p, v_p, p_p = _pad_inputs(*ins, cfg, block)
+    nc, _ = _pick_compact(v_p, initial_state(GraphCapacity(*dims), "cpu"))
+    for d in (2, 4, 8):
+        if rank >= d:
+            continue
+        mesh = meshes[d]
+        state = initial_state(GraphCapacity(dims[0], 1, dims[2]), "cpu")
+        with C.counting() as rec:
+            st, lx, lt, li, outs, done = RO.resident_online_core(
+                state, *RO.initial_shards(dims[1], mesh), o_p, v_p, p_p, cfg, mesh, block,
+                compact_obs=nc)
+        per_d[d] = dict(
+            run=_ro_np(RO.run_pass_resident_online(*ins, cfg, mesh, block=block)),
+            payload={k: dict(v) for k, v in rec.items()},
+            shapes=[tuple(x.shape) for x in (lx, lt, li, st.graph.lm_xy, st.lm_info_xy)],
+            done=(done, o_p.shape[0]))
+    return res, per_d
+
+
 def _rank_main(rank, world, port, out_dir):
     from tpuslam_torch.parallel.mesh import initialize_distributed
     torch.set_num_threads(1)
@@ -199,6 +308,7 @@ def _rank_main(rank, world, port, out_dir):
         inputs = pickle.load(f)
     try:
         out = _rank_cases(inputs)
+        out["ro"], out["ro_d"] = _resident_online_cases(inputs["ro"])
     finally:
         dist.destroy_process_group()
     with open(os.path.join(out_dir, f"rank{rank}.pkl"), "wb") as f:
@@ -243,7 +353,19 @@ def _jax_graphs():
     graphs = dict(world=_world(), world3=_world(seed=3, n_poses=16, n_lm=8), track=st.graph,
                   hier=hier_world(), instrument=instrument_world(), fused=fused)
     return graphs, dict(pack=pack, pcfg=pcfg, icfg=icfg, states=states,
-                        track_xy=iscens[0].track.cones_xy)
+                        track_xy=iscens[0].track.cones_xy, ro=_ro_scenario())
+
+
+def _ro_scenario():
+    """tests/test_instrument.py:200-210's lap: trackdrive(seed=11), 1.2
+    laps at keyframe_dt 0.2, cut to a multiple of 16 frames, capacity
+    (max(64, T), 128, 2048)."""
+    from tpuslam.sim import SimConfig, simulate, trackdrive
+    scen = simulate(trackdrive(seed=11), SimConfig(laps=1.2, keyframe_dt=0.2, speed=8.0,
+                                                   max_range=20.0, seed=60))
+    T = len(scen.times) - len(scen.times) % 16
+    return dict(obs=scen.obs[:T].astype(np.float32), valid=scen.obs_valid[:T].copy(),
+                poses=scen.odom_poses[:T].astype(np.float32), dims=(max(64, T), 128, 2048))
 
 
 @pytest.fixture(scope="module")
@@ -261,7 +383,7 @@ def world(tmp_path_factory, built):
     inputs = dict(graphs={k: _jnp(g) for k, g in graphs.items()},
                   pack=[_jnp(g) for g in extra["pack"]], gate=pcfg.same_cone_threshold,
                   odo_info=icfg.odo_info, lm_info=icfg.lm_info,
-                  pack_odo_info=pcfg.odo_info, pack_lm_info=pcfg.lm_info)
+                  pack_odo_info=pcfg.odo_info, pack_lm_info=pcfg.lm_info, ro=extra["ro"])
     with open(os.path.join(out_dir, "inputs.pkl"), "wb") as f:
         pickle.dump(inputs, f)
     from tpuslam_torch.parallel.mesh import free_port
@@ -377,7 +499,32 @@ def jax_refs(world, built):
                                              align=False, solver=s, tray=t,
                                              solve_mesh=mesh)[0])
         for s, t in SOLVERS}
+    refs["ro"] = _jax_resident_online(extra["ro"])
     return refs
+
+
+def _jax_resident_online(ro):
+    """The JAX package's resident pass of each of RO_CONFIGS on its
+    8-device ('map',) mesh, as numpy (state, outputs)."""
+    import jax
+    import jax.numpy as jnp
+    from tpuslam.backend.graph import GraphCapacity
+    from tpuslam.parallel import resident_online as JRO
+    from tpuslam.runtime.config import SlamConfig
+    mesh = jax.make_mesh((8,), ("map",))
+    ins = (jnp.asarray(ro["obs"]), jnp.asarray(ro["valid"]), jnp.asarray(ro["poses"]))
+    out = {}
+    for name, (opts, block) in RO_CONFIGS.items():
+        opts = dict(opts)
+        make = SlamConfig.improved if opts.pop("improved", False) else SlamConfig
+        st, outs = JRO.run_pass_resident_online(
+            *ins, make(capacity=GraphCapacity(*ro["dims"]), **opts), mesh, block=block)
+        state = {f.name: np.asarray(getattr(st, f.name)) for f in dataclasses.fields(st)
+                 if f.name != "graph"}
+        state["graph"] = _jnp(st.graph)
+        out[name] = (state, {f.name: np.asarray(getattr(outs, f.name))
+                             for f in dataclasses.fields(outs)})
+    return out
 
 
 def _jplan(plan):
@@ -685,3 +832,172 @@ def test_fuse_sessions_solver_registry(port, jax_refs):
         assert rep_solver == key.split("/")[0]
         _close(out, base, REGISTRY_ATOL, key, (npo, nl))
         _close(out, jax_refs["registry"][key], JAX_ATOL, f"{key} vs jax", (npo, nl))
+
+
+# --------------------------------------------------------------------------
+# tests/test_resident_online.py and tests/test_instrument.py:187-248, the
+# port's resident online pass
+
+def _ro_compare(got, want, atol, what):
+    """tests/test_resident_online.py's `_compare`: the decision sequence
+    (counts, flags, edges, landmark types, published discrete outputs)
+    exact; estimates within `atol`."""
+    (sa, oa), (sb, ob) = got, want
+    ga, gb = sa["graph"], sb["graph"]
+    for k in ("n_landmarks", "n_obs", "n_poses"):
+        assert int(ga[k]) == int(gb[k]), (what, k, ga[k], gb[k])
+    for k in ("loop_closure_complete", "current_cone_index"):
+        assert int(sa[k]) == int(sb[k]), (what, k)
+    n, nl, npp = int(gb["n_obs"]), int(gb["n_landmarks"]), int(gb["n_poses"])
+    for k in ("obs_lm", "obs_pose"):
+        np.testing.assert_array_equal(ga[k][:n], gb[k][:n], err_msg=f"{what} {k}")
+    np.testing.assert_array_equal(ga["lm_type"][:nl], gb["lm_type"][:nl], err_msg=f"{what} type")
+    np.testing.assert_allclose(ga["lm_xy"][:nl], gb["lm_xy"][:nl], atol=atol, rtol=0,
+                               err_msg=f"{what} lm_xy")
+    np.testing.assert_allclose(ga["poses"][:npp], gb["poses"][:npp], atol=atol, rtol=0,
+                               err_msg=f"{what} poses")
+    for f in ("pose", "cone_azimuth", "cone_distance"):
+        np.testing.assert_allclose(oa[f], ob[f], atol=atol, rtol=0, err_msg=f"{what} out.{f}")
+    for f in ("send", "loop_closed", "n_landmarks", "cone_type"):
+        np.testing.assert_array_equal(oa[f], ob[f], err_msg=f"{what} out.{f}")
+
+
+def _ro_structure(got, want, what):
+    """tests/test_resident_online.py's rule for the improved mode, whose
+    periodic refinement feeds refined maps back into later gating: both
+    closed, landmark count exact, edges within 2, landmarks and published
+    poses within 5e-2."""
+    (sa, oa), (sb, ob) = got, want
+    assert bool(sa["loop_closure_complete"]) and bool(sb["loop_closure_complete"]), what
+    nl = int(sb["graph"]["n_landmarks"])
+    assert int(sa["graph"]["n_landmarks"]) == nl, what
+    assert abs(int(sa["graph"]["n_obs"]) - int(sb["graph"]["n_obs"])) <= 2, what
+    np.testing.assert_allclose(sa["graph"]["lm_xy"][:nl], sb["graph"]["lm_xy"][:nl],
+                               atol=RO_STRUCT_ATOL, rtol=0, err_msg=f"{what} lm_xy")
+    np.testing.assert_allclose(oa["pose"], ob["pose"], atol=RO_STRUCT_ATOL, rtol=0,
+                               err_msg=f"{what} out.pose")
+
+
+def _ro_hold(name, got, want, what, atol=RO_ATOL):
+    if name in RO_STRUCTURE:
+        _ro_structure(got, want, what)
+    else:
+        _ro_compare(got, want, atol, what)
+
+
+def _ro_per_d(port, d):
+    """The per-mesh-size results of the ranks in the mesh of `d`, checked
+    equal across them; rank 0's."""
+    res = [r["ro_d"][d] for r in port[:d]]
+    for r in res[1:]:
+        _same(r, res[0], f"ro d={d}")
+    assert all(d not in r["ro_d"] for r in port[d:])
+    return res[0]
+
+
+@pytest.mark.parametrize("name", list(RO_CONFIGS))
+def test_resident_online_matches_dense_and_jax(port, jax_refs, name):
+    """tests/test_resident_online.py:84-177 at D = 8 on the small lap (which
+    closes its loop): the port's resident pass against its dense
+    `run_pass_blocked` at the same block (compat and Mahalanobis: the
+    decision sequence exact, values within 2e-3; improved and mid-block:
+    the structure rule), against the JAX package's resident pass (the same
+    decisions and values within 1e-3; the improved ones by the structure
+    rule), and at D = 1 against the dense pass by the same rules."""
+    got = _agree(port, "ro")["d8"][name]
+    single = port[0]["ro"]["single"]
+    dense = single["dense"][name]
+    assert bool(dense[0]["loop_closure_complete"]), "the lap must close its loop"
+    _ro_hold(name, got, dense, f"{name} D=8 vs dense")
+    _ro_hold(name, got, jax_refs["ro"][name], f"{name} D=8 vs jax", atol=JAX_ATOL)
+    _ro_hold(name, single["d1"][name], dense, f"{name} D=1 vs dense")
+
+
+@pytest.mark.parametrize("d", [2, 4])
+def test_resident_online_equal_across_mesh_sizes(port, d):
+    """Compat 'first' over meshes of 2 and 4 ranks against the mesh of 8,
+    under the dense comparison's rules (the psum'd sums differ in order)."""
+    got = _ro_per_d(port, d)["run"]
+    _ro_compare(got, _ro_per_d(port, 8)["run"], RO_ATOL, f"D={d} vs D=8")
+    _ro_compare(got, _agree(port, "ro")["d8"]["first"], RO_ATOL, f"D={d} vs run at D=8")
+
+
+def test_resident_online_payload_d_invariant(port):
+    """tests/test_instrument.py:187-233: the collectives one rank calls in
+    `resident_online_core` (compat 'first', the small lap), counted by the
+    port's wrappers, are the same at D = 2, 4 and 8, kind by kind, in calls
+    and bytes (the association gates [BN, L/D] locally and reduces [BN]
+    keys; the solves sum capacity-sized reduced systems; the GNs' trip
+    counts agree), and nothing O(L) is gathered. The JAX test's second half
+    (`while_mult`, the walker's loop multiplier) has no counterpart: the
+    port counts the iterations that ran."""
+    per_d = {d: _ro_per_d(port, d)["payload"] for d in (2, 4, 8)}
+    assert per_d[2] == per_d[4] == per_d[8], per_d
+    p = per_d[2]
+    assert p.get("all_gather", {"bytes": 0})["bytes"] < 128 * 8
+    assert sum(p[k]["bytes"] for k in ("psum", "pmin", "pmax")) > 0
+    assert all(p[k]["count"] > 0 for k in ("psum", "pmin", "pmax"))
+
+
+def test_resident_online_map_is_physically_sharded(port):
+    """tests/test_resident_online.py:119-142: `resident_online_core` takes
+    and returns this rank's Lb = L / D landmark rows (lm_xy, lm_type,
+    lm_info) at every mesh size, its state holds the one dummy landmark row
+    it came with, and the pass completes in the blocks."""
+    for d in (2, 4, 8):
+        r = _ro_per_d(port, d)
+        lb = 128 // d
+        assert r["shapes"] == [(lb, 2), (lb,), (lb, 3), (1, 2), (1, 3)], (d, r["shapes"])
+        assert r["done"][0] == r["done"][1]
+
+
+def test_resident_online_fallback_and_lm_per_device(port):
+    """A landmark capacity of 64 for a lap of ~110: the blocks fall back
+    mid-lap and the per-frame path finishes on the gathered map, equal to
+    the dense pass's completion; with `lm_per_device=24` (a sharded map of
+    192 slots past `max_landmarks`) the pass equals the dense one and the
+    state's map is cut to `max_landmarks`. A capacity of 100 over 8 ranks
+    without `lm_per_device` is refused."""
+    got = _agree(port, "ro")
+    single = port[0]["ro"]["single"]
+    assert int(got["fallback"][0]["graph"]["n_landmarks"]) == 64
+    _ro_compare(got["fallback"], single["fallback"], RO_ATOL, "fallback")
+    _ro_compare(got["lm_per_device"], single["dense"]["first"], RO_ATOL, "lm_per_device")
+    assert got["lm_per_device"][0]["graph"]["lm_xy"].shape == (128, 2)
+    assert "not divisible" in got["refuse_l_mod_d"]
+
+
+def test_resident_online_branch_agreement(port):
+    """Every host branch of the pass reads flags every rank agrees on:
+    `_agreed` returns them when the ranks agree and raises on every rank
+    (instead of letting one leave a loop the others stay in) when not."""
+    for r in port:
+        assert r["ro"]["agreed"] == [3, 1, 7]
+        assert "disagree" in r["ro"]["disagreed"]
+
+
+def test_resident_online_cuda_mesh_without_a_card_raises(port):
+    """No fallback hides the device: a ('map',) mesh asked for on 'cuda'
+    raises on a machine without a card, on every rank."""
+    for r in port:
+        assert "no CUDA device" in r["ro"]["cuda_refused"]
+
+
+def test_resident_online_rejects_unsupported():
+    """tests/test_resident_online.py:147-157, with no world: the
+    association kernel and a full-batch periodic GN are refused, and so is a
+    periodic GN whose boundaries are neither block ends nor dividing the
+    block."""
+    from tpuslam_torch.backend.graph import GraphCapacity
+    from tpuslam_torch.parallel.resident_online import run_pass_resident_online
+    from tpuslam_torch.runtime.config import SlamConfig
+    cap = GraphCapacity(64, 128, 2048)
+    obs, valid, poses = torch.zeros(16, 8, 4), torch.zeros(16, 8, dtype=torch.bool), \
+        torch.zeros(16, 3)
+    for cfg, block in ((SlamConfig(capacity=cap, use_pallas_association=True,
+                                   association="nearest"), 16),
+                       (SlamConfig.improved(capacity=cap, periodic_gn_every=16,
+                                            periodic_gn_window=0), 16),
+                       (SlamConfig.improved(capacity=cap, periodic_gn_every=24), 16)):
+        with pytest.raises(ValueError, match="unsupported config"):
+            run_pass_resident_online(obs, valid, poses, cfg, None, block=block)

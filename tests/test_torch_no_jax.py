@@ -3,8 +3,8 @@ package: in a fresh interpreter with both `jax` and `tpuslam` made
 unimportable, every module of `tpuslam_torch` (the blocked pipeline, the
 batched sessions, the fusion, the live service with its IO stack, EKF,
 WGS84 projection and checkpoint, the lidar front-end, the per-frame batched
-engine, the multi-device tier on `torch.distributed` and its pose-chain
-solvers among them),
+engine, the multi-device tier on `torch.distributed`, its pose-chain
+solvers and the map-resident online pass among them),
 `chip_smoke` and the GPU tests `tests/test_torch_cuda.py` import."""
 import subprocess
 import sys
@@ -29,7 +29,13 @@ from tpuslam_torch.parallel import (
     initialize_distributed, make_chain_mesh, make_slam_mesh, multisession_optimize,
     run_fleet_blocked,
 )
-from tpuslam_torch.parallel.collectives import all_gather, counting, pmin, ppermute, psum, shard
+from tpuslam_torch.parallel.collectives import (
+    all_gather, counting, pmax, pmin, ppermute, psum, shard,
+)
+from tpuslam_torch.parallel import make_map_mesh
+from tpuslam_torch.parallel.resident_online import (
+    initial_shards, resident_online_core, resident_online_supported, run_pass_resident_online,
+)
 from tpuslam_torch.parallel import (
     chain_optimize, chain_optimize_resident, partition_chain_resident,
     partition_edges_by_pose_block, resident_comm_bytes_per_iteration,

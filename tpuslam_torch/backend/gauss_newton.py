@@ -275,22 +275,34 @@ def schur_solve_split(hpp, w0, w1, hll, gp, gl, use_cholesky_kernel=False):
     system (its Schur product, factor and solves) is FP32 whatever the
     GN's matmul precision (`_fp32`)."""
     with _fp32():
-        hll_inv = _inv2x2(hll)
-        ia, ib, ic = hll_inv[..., 0, 0], hll_inv[..., 0, 1], hll_inv[..., 1, 1]
-        wa0 = w0 * ia[..., None, :] + w1 * ib[..., None, :]
-        wa1 = w0 * ib[..., None, :] + w1 * ic[..., None, :]
-        s = hpp - (wa0 @ w0.mT + wa1 @ w1.mT)
-        gl0, gl1 = gl[..., 0], gl[..., 1]
-        rhs = -gp + (_mv(wa0, gl0) + _mv(wa1, gl1))
-        if use_cholesky_kernel:
-            from tpuslam_torch.ops.cholesky import cholesky
-            c = cholesky(s)
-        else:
-            c = torch.linalg.cholesky_ex(s).L
-        dp = torch.cholesky_solve(rhs[..., None], c)[..., 0]
-        r0, r1 = gl0 + _mv(w0.mT, dp), gl1 + _mv(w1.mT, dp)
-    dl = -torch.stack([ia * r0 + ib * r1, ib * r0 + ic * r1], dim=-1)
-    return dp, dl
+        s_w, r_w, hll_inv = _schur_eliminate(w0, w1, hll, gl)
+        return _schur_back(hpp - s_w, -gp + r_w, w0, w1, gl, hll_inv, use_cholesky_kernel)
+
+
+def _schur_eliminate(w0, w1, hll, gl):
+    """The landmarks' elimination, batched: (W Hll^-1 W^T [3P, 3P],
+    W Hll^-1 gl [3P], Hll^-1 as its packed entries (a, b, c)). Sums of these
+    over disjoint landmark sets add up (the map-sharded solves)."""
+    hll_inv = _inv2x2(hll)
+    ia, ib, ic = hll_inv[..., 0, 0], hll_inv[..., 0, 1], hll_inv[..., 1, 1]
+    wa0 = w0 * ia[..., None, :] + w1 * ib[..., None, :]
+    wa1 = w0 * ib[..., None, :] + w1 * ic[..., None, :]
+    return (wa0 @ w0.mT + wa1 @ w1.mT, _mv(wa0, gl[..., 0]) + _mv(wa1, gl[..., 1]),
+            (ia, ib, ic))
+
+
+def _schur_back(s, rhs, w0, w1, gl, hll_inv, use_cholesky_kernel=False):
+    """(dp, dl): the reduced system S dp = rhs factored and solved, then
+    dl = -Hll^-1 (gl + W^T dp), with `hll_inv` from `_schur_eliminate`."""
+    if use_cholesky_kernel:
+        from tpuslam_torch.ops.cholesky import cholesky
+        c = cholesky(s)
+    else:
+        c = torch.linalg.cholesky_ex(s).L
+    dp = torch.cholesky_solve(rhs[..., None], c)[..., 0]
+    r0, r1 = gl[..., 0] + _mv(w0.mT, dp), gl[..., 1] + _mv(w1.mT, dp)
+    ia, ib, ic = hll_inv
+    return dp, -torch.stack([ia * r0 + ib * r1, ib * r0 + ic * r1], dim=-1)
 
 
 def _apply_gauge_blocked(g: FactorGraph, cfg: GNConfig, h_diag, h_off, w, hll, gp, gl):
@@ -542,40 +554,8 @@ def window_gn_step(g: FactorGraph, cfg: GNConfig, window: int, edge_window: int,
         sess = torch.arange(S, device=dev)[:, None] if S > 1 else None
         n = (g.n_poses if end is None else end)[:, None]
         e_stop = (g.n_obs if end_obs is None else end_obs)[:, None]
-        w0 = torch.clamp(n - W, min=0)
-        kg = w0 + torch.arange(W, device=dev)                 # global pose index per row
+        w0, kg, poses_w, h_diag, h_off, gp = _window_chain(g, cfg, W, n, sess)
         kgl = kg.long()
-        poses_w = _take(g.poses, kgl, sess)
-
-        # odometry chain within the window, plus the boundary edge's J_j half
-        prev0 = _take(g.poses, torch.clamp(w0 - 1, min=0).long(), sess)
-        p_prev = torch.cat([prev0, poses_w[:, :-1]], dim=1)
-        odo_valid = (kg >= 1) & (kg < n)
-        r_o, j_oi, j_oj = odometry_residuals(p_prev, poses_w, _take(g.odo_meas, kgl, sess))
-        w_o = cfg.odo_info * odo_valid.to(dtype) * _take(g.odo_w, kgl, sess)
-        w3 = w_o[..., None, None]
-        jti = j_oi.transpose(-1, -2)
-        jtj = j_oj.transpose(-1, -2)
-        a_ii = w3 * (jti @ j_oi)
-        a_jj = w3 * (jtj @ j_oj)
-        h_off = w3 * (jti @ j_oj)                             # block (r-1, r)
-        g_i = w_o[..., None] * (jti @ r_o[..., None])[..., 0]
-        g_j = w_o[..., None] * (jtj @ r_o[..., None])[..., 0]
-        h_diag = torch.cat([a_jj[:, :-1] + a_ii[:, 1:], a_jj[:, -1:]], dim=1)
-        h_off = torch.cat([torch.zeros_like(h_off[:, :1]), h_off[:, 1:]], dim=1)
-        gp = torch.cat([g_j[:, :-1] + g_i[:, 1:], g_j[:, -1:]], dim=1)
-
-        # GPS/heading priors of window poses
-        prior_info_w = _take(g.prior_info, kgl, sess)
-        pose_valid = (kg < n).to(dtype)
-        ixy = prior_info_w[..., 0] * pose_valid
-        ith = prior_info_w[..., 1] * pose_valid
-        eye_xy = torch.diag(torch.tensor([1.0, 1.0, 0.0], dtype=dtype, device=dev))
-        eye_th = torch.diag(torch.tensor([0.0, 0.0, 1.0], dtype=dtype, device=dev))
-        h_diag = h_diag + ixy[..., None, None] * eye_xy + ith[..., None, None] * eye_th
-        r_pr = poses_w - _take(g.prior_pose, kgl, sess)
-        r_pr = torch.cat([r_pr[..., :2], se2.wrap_angle(r_pr[..., 2:])], dim=-1)
-        gp = gp + r_pr * torch.stack([ixy, ixy, ith], dim=-1)
 
         # trailing landmark edges whose pose lies in the window; each session's
         # sums go to its own rows of one flat buffer
@@ -660,6 +640,50 @@ def window_gn_step(g: FactorGraph, cfg: GNConfig, window: int, edge_window: int,
         new_w = torch.cat([new_w[..., :2], theta[..., None]], dim=-1)
         poses = g.poses.reshape(S * P, 3).index_put((_flat(kgl, P, sess),), new_w.reshape(-1, 3))
         return dataclasses.replace(g, poses=poses.reshape(S, P, 3), lm_xy=lm_xy)
+
+
+def _window_chain(g: FactorGraph, cfg: GNConfig, W: int, n, sess):
+    """The pose side of a stacked graph's [S] fixed-lag window ending before
+    pose `n` [S, 1]: (w0 [S, 1] its first pose, kg [S, W] the global pose
+    index of each row, the window's poses [S, W, 3], and the blocks h_diag,
+    h_off (block (r-1, r)) [S, W, 3, 3] and gp [S, W, 3] of its odometry
+    chain, the boundary edge's J_j half included, and of its poses'
+    GPS/heading priors). `sess` as in `_take`."""
+    dtype, dev = g.poses.dtype, g.poses.device
+    w0 = torch.clamp(n - W, min=0)
+    kg = w0 + torch.arange(W, device=dev)
+    kgl = kg.long()
+    poses_w = _take(g.poses, kgl, sess)
+
+    # odometry chain within the window, plus the boundary edge's J_j half
+    prev0 = _take(g.poses, torch.clamp(w0 - 1, min=0).long(), sess)
+    p_prev = torch.cat([prev0, poses_w[:, :-1]], dim=1)
+    odo_valid = (kg >= 1) & (kg < n)
+    r_o, j_oi, j_oj = odometry_residuals(p_prev, poses_w, _take(g.odo_meas, kgl, sess))
+    w_o = cfg.odo_info * odo_valid.to(dtype) * _take(g.odo_w, kgl, sess)
+    w3 = w_o[..., None, None]
+    jti = j_oi.transpose(-1, -2)
+    jtj = j_oj.transpose(-1, -2)
+    a_ii = w3 * (jti @ j_oi)
+    a_jj = w3 * (jtj @ j_oj)
+    h_off = w3 * (jti @ j_oj)
+    g_i = w_o[..., None] * (jti @ r_o[..., None])[..., 0]
+    g_j = w_o[..., None] * (jtj @ r_o[..., None])[..., 0]
+    h_diag = torch.cat([a_jj[:, :-1] + a_ii[:, 1:], a_jj[:, -1:]], dim=1)
+    h_off = torch.cat([torch.zeros_like(h_off[:, :1]), h_off[:, 1:]], dim=1)
+    gp = torch.cat([g_j[:, :-1] + g_i[:, 1:], g_j[:, -1:]], dim=1)
+
+    # GPS/heading priors of window poses
+    prior_info_w = _take(g.prior_info, kgl, sess)
+    pose_valid = (kg < n).to(dtype)
+    ixy = prior_info_w[..., 0] * pose_valid
+    ith = prior_info_w[..., 1] * pose_valid
+    eye_xy = torch.diag(torch.tensor([1.0, 1.0, 0.0], dtype=dtype, device=dev))
+    eye_th = torch.diag(torch.tensor([0.0, 0.0, 1.0], dtype=dtype, device=dev))
+    h_diag = h_diag + ixy[..., None, None] * eye_xy + ith[..., None, None] * eye_th
+    r_pr = poses_w - _take(g.prior_pose, kgl, sess)
+    r_pr = torch.cat([r_pr[..., :2], se2.wrap_angle(r_pr[..., 2:])], dim=-1)
+    return w0, kg, poses_w, h_diag, h_off, gp + r_pr * torch.stack([ixy, ixy, ith], dim=-1)
 
 
 def optimize_window(g: FactorGraph, cfg: GNConfig, window: int, edge_window: int,

@@ -1,5 +1,5 @@
 from tpuslam_torch.parallel.mesh import (  # noqa: F401
-    make_chain_mesh, make_slam_mesh, initialize_distributed,
+    make_chain_mesh, make_map_mesh, make_slam_mesh, initialize_distributed,
 )
 from tpuslam_torch.parallel.distributed import (  # noqa: F401
     distributed_gn_step, distributed_optimize,
@@ -14,4 +14,7 @@ from tpuslam_torch.parallel.resident import (  # noqa: F401
 )
 from tpuslam_torch.parallel.fusion import (  # noqa: F401
     align_to_anchor, fuse_graphs, fuse_sessions,
+)
+from tpuslam_torch.parallel.resident_online import (  # noqa: F401
+    initial_shards, resident_online_core, resident_online_supported, run_pass_resident_online,
 )

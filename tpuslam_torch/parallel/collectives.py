@@ -1,6 +1,6 @@
 """The collectives of the mesh paths over one axis of a `DeviceMesh`:
-`psum` (over the whole axis or within groups of it), `pmin`, `all_gather`
-and `ppermute` (the JAX package's `jax.lax` collectives inside
+`psum` (over the whole axis or within groups of it), `pmin`, `pmax`,
+`all_gather` and `ppermute` (the JAX package's `jax.lax` collectives inside
 `shard_map`).
 
 Each is one `torch.distributed` call on the axis's process group, out of
@@ -13,7 +13,7 @@ pose-chain solvers) is an `all_gather` from which each rank picks its
 source's slot, so it is bit-exact on every backend.
 
 Payload accounting: inside `counting()` every wrapper adds its payload to
-the counter, per kind ('psum', 'pmin', 'all_gather', 'ppermute'): one
+the counter, per kind ('psum', 'pmin', 'pmax', 'all_gather', 'ppermute'): one
 count per call and the bytes this rank puts in (the per-device input, the
 JAX package's `parallel/instrument.py` convention). This is the one place
 payloads are counted (`parallel.instrument.collective_payload_bytes`).
@@ -25,7 +25,7 @@ import contextlib
 import torch
 import torch.distributed as dist
 
-__all__ = ["shard", "psum", "pmin", "all_gather", "ppermute", "counting"]
+__all__ = ["shard", "psum", "pmin", "pmax", "all_gather", "ppermute", "counting"]
 
 _COUNTERS: list[dict] = []
 _GROUPS: dict = {}
@@ -110,8 +110,18 @@ def psum(xs, mesh, dim: str, groups=None):
 def pmin(x, mesh, dim: str):
     """The elementwise minimum over `dim`."""
     _count("pmin", [x])
+    return _reduce(x, dist.ReduceOp.MIN, mesh, dim)
+
+
+def pmax(x, mesh, dim: str):
+    """The elementwise maximum over `dim`."""
+    _count("pmax", [x])
+    return _reduce(x, dist.ReduceOp.MAX, mesh, dim)
+
+
+def _reduce(x, op, mesh, dim: str):
     out = x.clone()
-    dist.all_reduce(out, op=dist.ReduceOp.MIN, group=mesh.get_group(dim))
+    dist.all_reduce(out, op=op, group=mesh.get_group(dim))
     return out
 
 

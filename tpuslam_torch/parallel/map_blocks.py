@@ -24,7 +24,7 @@ import torch
 from tpuslam_torch.ops.association import associate
 from tpuslam_torch.parallel.collectives import pmin, shard
 
-__all__ = ["associate_sharded"]
+__all__ = ["associate_sharded", "sharded_winner"]
 
 _BIG = 1e30
 _NO_MATCH = 2 ** 63 - 1
@@ -68,12 +68,20 @@ def associate_sharded(obs_xy, obs_type, obs_valid, lm_xy, lm_type, lm_valid, gat
         lm_valid[..., mine], np.float32(gate), mode=mode,
         lm_cov_inv=None if lm_cov_inv is None else lm_cov_inv[..., mine, :, :],
         type_signed_bug=type_signed_bug)
-    gidx = idx.long() + i * k
+    return sharded_winner(idx.long() + i * k, cost, matched, mode == "first", mesh, axis)
+
+
+def sharded_winner(gidx, cost, matched, first: bool, mesh, axis: str):
+    """Each row's winner over `mesh[axis]` from every rank's local one
+    (global index `gidx`, float32 `cost`, `matched`), in one `pmin` of
+    64-bit keys: with `first`, the smallest global index and its cost; else
+    the least cost, ties to the smallest global index. Returns (index int32,
+    0 where unmatched; matched; cost, 1e30 where unmatched) on every rank."""
     order = _cost_order(cost)
-    key = (gidx << 32) | order if mode == "first" else (order << 31) | gidx
+    key = (gidx << 32) | order if first else (order << 31) | gidx
     key = pmin(torch.where(matched, key, _NO_MATCH), mesh, axis)
     matched = key != _NO_MATCH
-    if mode == "first":
+    if first:
         sel, cost = key >> 32, _cost_from_order(key & 0xFFFFFFFF)
     else:
         sel, cost = key & 0x7FFFFFFF, _cost_from_order(key >> 31)

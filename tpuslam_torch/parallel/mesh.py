@@ -31,7 +31,8 @@ import torch
 import torch.distributed as dist
 from torch.distributed.device_mesh import DeviceMesh
 
-__all__ = ["make_slam_mesh", "make_chain_mesh", "initialize_distributed", "free_port"]
+__all__ = ["make_slam_mesh", "make_chain_mesh", "make_map_mesh", "initialize_distributed",
+           "free_port"]
 
 
 def free_port() -> int:
@@ -98,11 +99,22 @@ def make_slam_mesh(n_sessions: int = 1, n_edge_shards: int | None = None,
                       mesh_dim_names=("sessions", "edges"))
 
 
-def make_chain_mesh(n_shards: int | None = None, device_type: str = "cuda") -> DeviceMesh:
-    """A 1-D ('chain',) mesh for pose-chain parallelism over the first
-    `n_shards` ranks (all by default)."""
+def _line_mesh(name: str, n_shards: int | None, device_type: str) -> DeviceMesh:
+    """A 1-D (`name`,) mesh over the first `n_shards` ranks (all by default)."""
     n = _check(device_type)
     use = n_shards or n
     if use < 1 or n % use:
-        raise ValueError(f"a chain of {use} shards does not divide {n} ranks")
-    return DeviceMesh(device_type, torch.arange(use), mesh_dim_names=("chain",))
+        raise ValueError(f"a {name} of {use} shards does not divide {n} ranks")
+    return DeviceMesh(device_type, torch.arange(use), mesh_dim_names=(name,))
+
+
+def make_chain_mesh(n_shards: int | None = None, device_type: str = "cuda") -> DeviceMesh:
+    """A 1-D ('chain',) mesh for pose-chain parallelism over the first
+    `n_shards` ranks (all by default)."""
+    return _line_mesh("chain", n_shards, device_type)
+
+
+def make_map_mesh(n_shards: int | None = None, device_type: str = "cuda") -> DeviceMesh:
+    """A 1-D ('map',) mesh over the first `n_shards` ranks (all by default)
+    for the landmark map sharded in blocks (`parallel.resident_online`)."""
+    return _line_mesh("map", n_shards, device_type)
