@@ -128,14 +128,35 @@ Phases, in order; the first that fails ends the run with exit code 1:
                `cholesky_ex` and gates densely, as the JAX package's);
                the collectives per keyframe of each run, and the
                RESIDENT_TIMED laps timed beside their dense laps.
+  cli      — the port's command line (`cli.main.main`, `slamctl-torch`) in
+               this process on the card: `sim skidpad` (live, with
+               --rec-out) held to the same command on the CPU; `sim
+               trackdrive` live, blocked and resident (block CLI_BLOCK, the
+               resident one on a one-rank NCCL world the CLI makes and
+               destroys), the two passes held to the live run's counts, each
+               run's frames/s beside the direct `Slam.run_scenario` /
+               `run_pass_blocked` / `run_pass_resident_online` lap of the
+               same call; `replay --checkpoint` of the recording and
+               `load_checkpoint` of that file; `export` (jsonl, csv) and
+               `msc`; `fuse --sessions 2` held to the CPU run; the native
+               codec built with g++, its scan of the recording equal to
+               Python's framing; `trace_session` around one blocked lap in
+               a fresh process (no earlier profile there), its trace file
+               holding the lap's stage and CUDA kernel events; `entry()` against
+               the same call on the CPU; `dryrun_multichip(1)` on one NCCL
+               rank. No kernel is launched (no command sets a kernel
+               switch, as in the JAX package), and no PNG is asked for
+               (the machine has no matplotlib).
 It prints a `{"kernels": [...]}` line, the card's name and power limit as
 nvidia-smi gives them, and last `{"ok": true, "device": {...}}`. Without a
 CUDA device it fails before any phase. It imports no JAX.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import functools
+import io
 import json
 import os
 import statistics
@@ -424,6 +445,91 @@ GN_PRECISION_RTOL = 1e-3
 # the gloo world's map-sharded association: the pod map over two shards
 ASSOC_MESH_CASES = (("first", False), ("first", True), ("nearest", False),
                     ("mahalanobis", False))
+
+
+# phase `cli`: the CLI's `sim` defaults (laps 1.3, seed 0), block 32 for
+# the whole-lap pipelines, and the CLI runs' ATE / map error against their
+# reference (the same command on the CPU, or the live run for the passes)
+CLI_BLOCK = 32
+CLI_SIM = SimConfig(laps=1.3, seed=0)
+CLI_FUSE = ["fuse", "--sessions", "2"]
+
+
+def cli_call(argv):
+    """(stdout, stderr, wall seconds) of one `cli.main.main(argv)` call in
+    this process, the card synchronised before the clock stops; a non-zero
+    exit raises."""
+    from tpuslam_torch.cli.main import main as cli_main
+    out, err = io.StringIO(), io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(out), contextlib.redirect_stderr(err):
+        rc = cli_main(argv)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    if rc != 0:
+        raise AssertionError(f"cli {argv}: exit {rc}: {err.getvalue()[-2000:]}")
+    if torch.distributed.is_initialized():
+        raise AssertionError(f"cli {argv}: left a process group behind")
+    return out.getvalue(), err.getvalue(), wall
+
+
+def cli_json(argv):
+    out, _, wall = cli_call(argv)
+    return json.loads(out.strip().splitlines()[-1]), wall
+
+
+def check_cli(what, got, want, exact, close=(), atol=METRIC_ATOL_M):
+    for k in exact:
+        if got[k] != want[k]:
+            raise AssertionError(f"cli {what}: {k} = {got[k]}, want {want[k]}")
+    for k in close:
+        if abs(got[k] - want[k]) > atol:
+            raise AssertionError(f"cli {what}: {k} = {got[k]}, want {want[k]} within {atol}")
+
+
+def traced_blocked_lap(logdir):
+    """One blocked trackdrive lap (CLI_SIM, block CLI_BLOCK) under
+    `trace_session`, after a warm-up lap: the counts of the trace file it
+    writes into `logdir`."""
+    from tpuslam_torch.runtime.tracing import stage, trace_session
+    torch.backends.cuda.matmul.allow_tf32 = False
+    ins = inputs(simulate(trackdrive(seed=0), CLI_SIM), "cuda")
+    cfg = SlamConfig()
+    run_pass_blocked(*ins, cfg, block=CLI_BLOCK)
+    with trace_session(logdir):
+        with stage("blocked lap"):
+            run_pass_blocked(*ins, cfg, block=CLI_BLOCK)
+    (trace,) = [os.path.join(logdir, f) for f in os.listdir(logdir)]
+    events = json.load(open(trace))["traceEvents"]
+    return {"kernels": sum(e.get("cat") == "kernel" for e in events),
+            "stages": sum(e.get("name") == "blocked lap" for e in events),
+            "events": len(events), "bytes": os.path.getsize(trace)}
+
+
+def traced_blocked_lap_in_child(logdir, timeout_s=300):
+    """`traced_blocked_lap` in a child Python process, so that no profile
+    taken earlier in this process bears on the trace; its counts and the
+    child's wall seconds. A failed or overdue child raises."""
+    here = os.path.dirname(os.path.abspath(__file__))
+    code = (f"import json, sys; sys.path.insert(0, {here!r}); import chip_smoke; "
+            f"print(json.dumps(chip_smoke.traced_blocked_lap({logdir!r})))")
+    t0 = time.perf_counter()
+    done = subprocess.run([sys.executable, "-c", code], cwd=here, capture_output=True,
+                          text=True, timeout=timeout_s)
+    if done.returncode != 0:
+        raise AssertionError(f"cli trace: the child exited {done.returncode}: "
+                             f"{done.stderr[-2000:]}")
+    return {**json.loads(done.stdout.strip().splitlines()[-1]),
+            "wall_s": time.perf_counter() - t0}
+
+
+def timed(fn):
+    """(result, host seconds) of `fn()`, the card synchronised."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, time.perf_counter() - t0
 
 
 def configs():
@@ -2983,6 +3089,153 @@ class Smoke:
         self.log(f"resident: gloo world of {RESIDENT_RANKS} ranks on cuda:0 in {wall:.1f} s "
                  f"(spawn included) [{self.card}]")
 
+    # -- after resident
+    def cli(self):
+        """The port's CLI in this process on the card (see the module
+        docstring): every command's output held to a reference, the sim
+        runs timed beside their direct laps, no kernel launched."""
+        from tpuslam_torch.entry import dryrun_multichip, entry
+        from tpuslam_torch.io import envelope as E
+        from tpuslam_torch.io import proto
+        from tpuslam_torch.native import codec as native_codec
+        from tpuslam_torch.parallel.mesh import initialize_distributed, make_map_mesh
+        from tpuslam_torch.parallel.resident_online import run_pass_resident_online
+        if torch.distributed.is_initialized():
+            raise AssertionError("cli: a process group is left from an earlier phase")
+        A.launches = C.launches = 0
+        with tempfile.TemporaryDirectory() as tmp:
+            rec = os.path.join(tmp, "skidpad.rec")
+            sk, sk_wall = cli_json(["sim", "skidpad", "--rec-out", rec])
+            sk_cpu, _ = cli_json(["--device", "cpu", "sim", "skidpad"])
+            check_cli("sim skidpad", sk, sk_cpu, ("frames", "loop_closed", "landmarks"),
+                      ("ate_published_m", "ate_odometry_m"))
+            self.log(f"cli: sim skidpad: {json.dumps(sk)}; held to the CPU run; "
+                     f"{sk_wall:.2f} s in all")
+
+            # trackdrive through the three pipelines, and the same laps direct
+            track = trackdrive(seed=0)
+            scen = simulate(track, CLI_SIM)
+            ins = inputs(scen, "cuda")
+            cfg = SlamConfig()
+            sims = {}
+            for pipe, extra in (("live", []), ("blocked", ["--block", str(CLI_BLOCK)]),
+                                ("resident", ["--block", str(CLI_BLOCK), "--map-shards", "1"])):
+                sims[pipe] = cli_json(["sim", "trackdrive", "--pipeline", pipe, *extra])
+            live = sims["live"][0]
+            if not live["loop_closed"]:
+                raise AssertionError(f"cli: sim trackdrive live did not close the loop: {live}")
+            for pipe in ("blocked", "resident"):
+                check_cli(f"sim trackdrive {pipe}", sims[pipe][0], live,
+                          ("frames", "loop_closed", "landmarks"), ("ate_published_m",))
+            _, live_s = timed(lambda: Slam(cfg, device="cuda").run_scenario(scen))
+
+            def blocked():
+                return run_pass_blocked(*ins, cfg, block=CLI_BLOCK)
+            _, blocked_first = timed(blocked)
+            _, blocked_s = timed(blocked)
+            initialize_distributed("nccl")
+            try:
+                mesh = make_map_mesh(1, device_type="cuda")
+
+                def resident():
+                    return run_pass_resident_online(*ins, cfg, mesh, block=CLI_BLOCK)
+                _, resident_first = timed(resident)
+                _, resident_s = timed(resident)
+            finally:
+                torch.distributed.destroy_process_group()
+            t = len(scen.times)
+            direct = {"live": (live_s, live_s), "blocked": (blocked_s, blocked_first + blocked_s),
+                      "resident": (resident_s, resident_first + resident_s)}
+            for pipe, (res, wall) in sims.items():
+                lap_s, both_s = direct[pipe]
+                self.log(f"cli timing: sim trackdrive --pipeline {pipe} ({t} frames): the CLI "
+                         f"reports {json.dumps(res)}, {wall:.3f} s for the whole command; "
+                         f"the direct lap {t / lap_s:.1f} frames/s ({lap_s * 1e3:.2f} ms), "
+                         f"{both_s:.3f} s with its warm-up run [{self.card}]")
+
+            # replay with a checkpoint, which loads
+            ck = os.path.join(tmp, "replay.npz")
+            out, _, wall = cli_call(["replay", rec, "--timeBetweenKeyframes", "100",
+                                     "--checkpoint", ck])
+            snap = json.loads(out)
+            state, _ = load_checkpoint(ck, device="cuda")
+            if not (snap["gauges"]["loop_closed"] is True
+                    and int(state.graph.n_landmarks) == snap["gauges"]["landmarks"] > 20):
+                raise AssertionError(f"cli replay: gauges {snap['gauges']}, checkpoint "
+                                     f"{int(state.graph.n_landmarks)} landmarks")
+            self.log(f"cli: replay --checkpoint: {snap['gauges']['landmarks']} landmarks, loop "
+                     f"closed, {snap['counters']}; the checkpoint loads on the card ({wall:.2f} s)")
+
+            # export and msc
+            n_env = len(list(E.iterate_envelopes(open(rec, "rb").read())))
+            for fmt, typ in (("jsonl", "1134"), ("csv", "1116")):
+                path = os.path.join(tmp, f"export.{fmt}")
+                _, err, _ = cli_call(["export", rec, "--format", fmt, "--type", typ,
+                                      "--out", path])
+                lines = open(path).read().strip().splitlines()
+                if not lines:
+                    raise AssertionError(f"cli export {fmt}: empty ({err.strip()})")
+                self.log(f"cli: export {fmt} --type {typ}: {len(lines)} lines of {n_env} "
+                         f"envelopes ({err.strip()})")
+            out, _, _ = cli_call(["msc", "--out", os.path.join(tmp, "gen.py")])
+            src = open(os.path.join(tmp, "gen.py")).read()
+            if "from tpuslam_torch.io import messages as _M" not in src:
+                raise AssertionError("cli msc: the module does not import the port's messages")
+            self.log(f"cli: msc: {out.strip()}")
+
+            # fuse, held to the CPU run
+            fz, fz_wall = cli_json(CLI_FUSE)
+            fz_cpu, fz_cpu_wall = cli_json(["--device", "cpu", *CLI_FUSE])
+            check_cli("fuse", fz, fz_cpu, [k for k in fz_cpu
+                                           if k not in ("fuse_seconds", "map_error_m")],
+                      ("map_error_m",))
+            self.log(f"cli: fuse: {json.dumps(fz)}; held to the CPU run (its fusion "
+                     f"{fz_cpu['fuse_seconds']} s); {fz_wall:.2f} s in all on the card, "
+                     f"{fz_cpu_wall:.2f} s on the CPU [{self.card}]")
+
+            # the native codec, built here with g++
+            buf = open(rec, "rb").read()
+            if not native_codec.available():
+                raise AssertionError("cli: the native codec did not build")
+            got = [proto.encode(proto.decode(M.Envelope, buf[o:o + n]))
+                   for o, n in native_codec.scan_frames(buf)]
+            if got != [proto.encode(e) for e in E.iterate_envelopes(buf)]:
+                raise AssertionError("cli: the native scan differs from Python's framing")
+            self.log(f"cli: native codec built; its scan of the recording equals Python's "
+                     f"framing ({len(got)} envelopes)")
+
+            # a trace of one blocked lap, in a fresh process: the profiler
+            # has dropped kernel events after the long profiles of phase 6
+            tr = traced_blocked_lap_in_child(os.path.join(tmp, "trace"))
+            if tr["kernels"] < 1 or tr["stages"] < 1:
+                raise AssertionError(f"cli trace: {tr}")
+            self.log(f"cli: trace_session around one blocked lap (a fresh process, "
+                     f"{tr['wall_s']:.1f} s): {tr['kernels']} CUDA kernel events, "
+                     f"{tr['events']} events, {tr['bytes']} bytes")
+
+        # the entry points
+        fn, args = entry()
+        st_g, out_g = fn(*args)
+        fn_c, args_c = entry("cpu")
+        st_c, out_c = fn_c(*args_c)
+        err = max(float((getattr(st_g.graph, f.name).cpu().float()
+                         - getattr(st_c.graph, f.name).float()).abs().max())
+                  for f in dataclasses.fields(st_g.graph))
+        err = max(err, float((out_g.pose.cpu() - out_c.pose).abs().max()))
+        if err > POSE_ATOL:
+            raise AssertionError(f"cli: entry() on the card differs from the CPU by {err}")
+        initialize_distributed("nccl")
+        try:
+            dry = dryrun_multichip(1)
+        finally:
+            torch.distributed.destroy_process_group()
+        self.log(f"cli: entry() within {err:.3g} of the CPU; dryrun_multichip(1) on one NCCL "
+                 f"rank: {json.dumps(dry)}")
+        launches = {"assoc": A.launches, "cholesky": C.launches}
+        if any(launches.values()):
+            raise AssertionError(f"cli: kernel launches {launches}: hold them to their twins")
+        self.log(f"cli: kernel launches {launches}")
+
     @staticmethod
     def laps(obs, valid, poses):
         """name -> one lap: the per-frame engine and the blocked pipeline
@@ -3482,7 +3735,7 @@ def main() -> int:
     phases = (smoke.build, smoke.kernels_vs_plain, smoke.compat, smoke.kernel_association,
               smoke.blocked, smoke.improved, smoke.batched, smoke.fusion, smoke.service,
               smoke.lidar, smoke.closure_solve, smoke.timing, smoke.parallel, smoke.chain,
-              smoke.resident)
+              smoke.resident, smoke.cli)
     if sys.argv[1:] == ["--assoc-plans"]:
         phases = (smoke.build, smoke.assoc_plans, smoke.assoc_host)
     elif sys.argv[1:]:

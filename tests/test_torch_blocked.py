@@ -222,13 +222,17 @@ def test_blocked_rejects_unsupported_config():
     # localizer's signed type compare, which index providers do not have,
     # as in the JAX package)
     from tpuslam_torch.parallel.mesh import initialize_distributed, make_slam_mesh
-    initialize_distributed("gloo")
-    mesh = make_slam_mesh(1, 1, device_type="cpu")
-    cfg = SlamConfig(capacity=cap, localizer_type_bug=False)
-    _assert_bit_equal(run_sequence_blocked(initial_state(cap, "cpu"), *ins, cfg, block=8,
-                                           assoc_mesh=mesh),
-                      run_sequence_blocked(initial_state(cap, "cpu"), *ins, cfg, block=8),
-                      "assoc_mesh")
+    made = initialize_distributed("gloo")
+    try:
+        mesh = make_slam_mesh(1, 1, device_type="cpu")
+        cfg = SlamConfig(capacity=cap, localizer_type_bug=False)
+        _assert_bit_equal(run_sequence_blocked(initial_state(cap, "cpu"), *ins, cfg, block=8,
+                                               assoc_mesh=mesh),
+                          run_sequence_blocked(initial_state(cap, "cpu"), *ins, cfg, block=8),
+                          "assoc_mesh")
+    finally:
+        if made:        # the next test file in this worker gets no world
+            torch.distributed.destroy_process_group()
 
 
 def test_blocked_zero_frames_equals_run_sequence():

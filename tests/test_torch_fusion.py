@@ -394,27 +394,31 @@ def test_fuse_sessions_solvers_mesh_and_unknown_refusal():
     with pytest.raises(ValueError, match="unknown fusion solver"):
         jfusion.fuse_sessions(_jgraph(stacked), cfg=jgn.GNConfig(iterations=3), solver="nope")
     from tpuslam_torch.parallel.mesh import initialize_distributed, make_chain_mesh, make_slam_mesh
-    initialize_distributed("gloo")
-    want, rep_w = fusion.fuse_sessions(stacked, cfg=cfg, align=False)
-    n_p, n_l = int(want.n_poses), int(want.n_landmarks)
-    chain = make_chain_mesh(device_type="cpu")
-    for solver in ("dd", "hier", "hier3"):
-        got, rep = fusion.fuse_sessions(stacked, cfg=cfg, solver=solver, align=False,
-                                        solve_mesh=chain)
-        assert rep["solver"] == solver and torch.equal(rep["labels"], rep_w["labels"])
-        torch.testing.assert_close(got.poses[:n_p], want.poses[:n_p], atol=1e-2, rtol=0)
-        torch.testing.assert_close(got.lm_xy[:n_l], want.lm_xy[:n_l], atol=1e-2, rtol=0)
-    mesh = make_slam_mesh(1, 1, device_type="cpu")
-    got, rep = fusion.fuse_sessions(stacked, cfg=cfg, mesh=mesh)
-    want, rep_w = fusion.fuse_sessions(stacked, cfg=cfg)
-    assert torch.equal(rep["labels"], rep_w["labels"])
-    assert int(got.n_landmarks) == int(want.n_landmarks)
-    torch.testing.assert_close(got.poses, want.poses, atol=5e-4, rtol=0)
-    torch.testing.assert_close(got.lm_xy, want.lm_xy, atol=5e-4, rtol=0)
-    valid = torch.ones(CAP.max_landmarks, dtype=torch.bool)
-    assert torch.equal(
-        fusion.dedup_labels(stacked.lm_xy[0], stacked.lm_type[0], valid, 1.2, mesh=mesh),
-        fusion.dedup_labels(stacked.lm_xy[0], stacked.lm_type[0], valid, 1.2))
+    made = initialize_distributed("gloo")
+    try:
+        want, rep_w = fusion.fuse_sessions(stacked, cfg=cfg, align=False)
+        n_p, n_l = int(want.n_poses), int(want.n_landmarks)
+        chain = make_chain_mesh(device_type="cpu")
+        for solver in ("dd", "hier", "hier3"):
+            got, rep = fusion.fuse_sessions(stacked, cfg=cfg, solver=solver, align=False,
+                                            solve_mesh=chain)
+            assert rep["solver"] == solver and torch.equal(rep["labels"], rep_w["labels"])
+            torch.testing.assert_close(got.poses[:n_p], want.poses[:n_p], atol=1e-2, rtol=0)
+            torch.testing.assert_close(got.lm_xy[:n_l], want.lm_xy[:n_l], atol=1e-2, rtol=0)
+        mesh = make_slam_mesh(1, 1, device_type="cpu")
+        got, rep = fusion.fuse_sessions(stacked, cfg=cfg, mesh=mesh)
+        want, rep_w = fusion.fuse_sessions(stacked, cfg=cfg)
+        assert torch.equal(rep["labels"], rep_w["labels"])
+        assert int(got.n_landmarks) == int(want.n_landmarks)
+        torch.testing.assert_close(got.poses, want.poses, atol=5e-4, rtol=0)
+        torch.testing.assert_close(got.lm_xy, want.lm_xy, atol=5e-4, rtol=0)
+        valid = torch.ones(CAP.max_landmarks, dtype=torch.bool)
+        assert torch.equal(
+            fusion.dedup_labels(stacked.lm_xy[0], stacked.lm_type[0], valid, 1.2, mesh=mesh),
+            fusion.dedup_labels(stacked.lm_xy[0], stacked.lm_type[0], valid, 1.2))
+    finally:
+        if made:        # the next test file in this worker gets no world
+            torch.distributed.destroy_process_group()
 
 
 def test_session_obs_counts_and_stack_graphs_match_jax():

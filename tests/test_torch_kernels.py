@@ -294,9 +294,13 @@ def test_unported_config_raises(field, value):
             torch.zeros(3))
     if field == "assoc_mesh":
         from tpuslam_torch.parallel.mesh import initialize_distributed, make_slam_mesh
-        initialize_distributed("gloo")
-        st, out = perform_keyframe(initial_state(cap, "cpu"), *args, cfg,
-                                   assoc_mesh=make_slam_mesh(1, 1, device_type="cpu"))
+        made = initialize_distributed("gloo")
+        try:
+            st, out = perform_keyframe(initial_state(cap, "cpu"), *args, cfg,
+                                       assoc_mesh=make_slam_mesh(1, 1, device_type="cpu"))
+        finally:
+            if made:    # the next test file in this worker gets no world
+                torch.distributed.destroy_process_group()
     else:
         st, out = perform_keyframe(initial_state(cap, "cpu"), *args,
                                    cfg.with_(**{field: value}))

@@ -327,6 +327,10 @@ def _rank_cases(inputs):
         res[k] = (_np(fused.poses), _np(fused.lm_xy), int(fused.n_poses),
                   int(fused.n_landmarks), _np(rep_m["labels"]), _np(dedup_labels(*raw, mesh=m)))
     out["fusion"] = res
+
+    # the dry run of `tpuslam_torch.entry`: every tier over this world
+    from tpuslam_torch.entry import dryrun_multichip
+    out["dryrun"] = dryrun_multichip(WORLD, device="cpu")
     return out
 
 
@@ -502,6 +506,20 @@ def _same(a, b, path=""):
 
 # --------------------------------------------------------------------------
 # tests/test_parallel.py and tests/test_fusion.py, mirrored
+
+def test_dryrun_multichip_in_the_world(port):
+    """`entry.dryrun_multichip(4)` (the counterpart of
+    `__graft_entry__.dryrun_multichip`) on every rank of this world: each
+    tier within the JAX dry run's bounds (it raises past them), 'hier3'
+    included, and every rank with the same deviations."""
+    from tpuslam_torch.entry import CHAIN_ATOL, FUSION_ATOL, ONLINE_ATOL
+    res = _ranks(port, "dryrun")
+    assert set(res[0]) == {"fusion", "dd", "resident", "hier", "hier3", "resident_online"}
+    assert res[0]["fusion"] < FUSION_ATOL and res[0]["resident_online"] < ONLINE_ATOL
+    assert max(res[0]["dd"], *res[0]["resident"], *res[0]["hier"], *res[0]["hier3"]) < CHAIN_ATOL
+    for got in res[1:]:
+        _same(got, res[0], "dryrun")
+
 
 def test_mesh_shapes(port):
     """tests/test_parallel.py::test_mesh_shapes: the axes and the row-major
@@ -794,6 +812,10 @@ def test_distributed_reference_constant():
     want = chip_smoke.graph_metrics(track, scen, dataclasses.replace(
         g, poses=torch.tensor(np.asarray(jd.poses)), lm_xy=torch.tensor(np.asarray(jd.lm_xy))))
     chip_smoke.check_metrics("distributed", want, chip_smoke.DISTRIBUTED_REFERENCE, atol=1e-6)
-    initialize_distributed("gloo")
-    d = distributed_optimize(g, cfg, make_slam_mesh(1, 1, device_type="cpu"))
+    made = initialize_distributed("gloo")
+    try:
+        d = distributed_optimize(g, cfg, make_slam_mesh(1, 1, device_type="cpu"))
+    finally:
+        if made:        # the next test file in this worker gets no world
+            dist.destroy_process_group()
     chip_smoke.check_metrics("distributed", chip_smoke.graph_metrics(track, scen, d), want)

@@ -8,8 +8,12 @@ delegates (reference src/cluon-complete-build.hpp:7753-7845, 9129-9530,
 datagram callback enqueues, one consumer drains to the delegates — same
 decoupling, no threads, no mutexes.
 
-A copy of `tpuslam.io.od4` without the native C++ endpoint
-(`tpuslam/native/` is not copied): the socket path is asyncio's only.
+A copy of `tpuslam.io.od4`. With `native=True` (default: auto) the socket
+path runs in the native C++ endpoint (tpuslam_torch/native/od4recv.cpp,
+built with g++ on first use into `tpuslam_torch/build/native/`; the analogue
+of the reference's native UDPReceiver thread, with kernel RX timestamps and
+self-send filtering in C), drained in batches by one asyncio task; the
+dispatch semantics are identical either way.
 """
 from __future__ import annotations
 
@@ -33,7 +37,8 @@ def multicast_group(cid: int) -> str:
 class OD4Session:
     """Asyncio OD4 bus endpoint with cluon-compatible wire format."""
 
-    def __init__(self, cid: int, interface: str = "0.0.0.0"):
+    def __init__(self, cid: int, interface: str = "0.0.0.0",
+                 native: Optional[bool] = None):
         self.cid = cid
         self.group = multicast_group(cid)
         self.interface = interface
@@ -42,7 +47,10 @@ class OD4Session:
         self._transport = None
         self._queue: asyncio.Queue = asyncio.Queue(maxsize=4096)
         self._consumer_task = None
+        self._pump_task = None
         self._local_addr = None
+        self._native_ep = None
+        self._want_native = native
         self.running = False
 
     # ------------------------------------------------------------- delegates
@@ -82,8 +90,36 @@ class OD4Session:
             except asyncio.QueueFull:
                 pass  # shed load like a full kernel socket buffer
 
+    async def _pump_native(self):
+        """Batch-drain the native ring buffer into the dispatch queue. The
+        blocking wait runs in the default executor with the GIL released."""
+        loop = asyncio.get_running_loop()
+        while True:
+            n = await loop.run_in_executor(None, self._native_ep.wait, 0.05)
+            if n <= 0:
+                continue
+            for data, recv_us in self._native_ep.drain():
+                self._enqueue_datagram(data, recv_us)
+
     async def start(self):
         loop = asyncio.get_running_loop()
+        if self._want_native is not False:
+            try:
+                # library load may compile C++ on first use — keep it off
+                # the event loop thread
+                from tpuslam_torch.native.receiver import NativeOD4Endpoint
+                self._native_ep = await loop.run_in_executor(
+                    None, lambda: NativeOD4Endpoint(
+                        self.cid, interface=self.interface))
+            except Exception:
+                if self._want_native is True:
+                    raise
+                self._native_ep = None
+        if self._native_ep is not None:
+            self._pump_task = asyncio.create_task(self._pump_native())
+            self._consumer_task = asyncio.create_task(self._consume())
+            self.running = True
+            return
         sock = self._make_socket()
 
         class _Proto(asyncio.DatagramProtocol):
@@ -126,7 +162,9 @@ class OD4Session:
         recorded envelopes with their original timestamps, reference
         src/cluon-complete-build.hpp:16037-16040)."""
         data = E.serialize_envelope(env)
-        if self._transport is not None:
+        if self._native_ep is not None:
+            self._native_ep.send(data)
+        elif self._transport is not None:
             self._transport.sendto(data, (self.group, OD4_PORT))
         return env
 
@@ -143,7 +181,17 @@ class OD4Session:
 
     async def stop(self):
         self.running = False
+        if self._pump_task:
+            self._pump_task.cancel()
+            try:
+                await self._pump_task
+            except asyncio.CancelledError:
+                pass
+            self._pump_task = None
         if self._consumer_task:
             self._consumer_task.cancel()
         if self._transport:
             self._transport.close()
+        if self._native_ep is not None:
+            ep, self._native_ep = self._native_ep, None
+            ep.close()

@@ -9,8 +9,8 @@ Re-implements libcluon's ToProtoVisitor/FromProtoVisitor wire format
 - key = (field_id << 3) | wire_type, varint-encoded
 
 Interoperates byte-for-byte with real `.rec` logs and live OD4 sessions.
-The JAX package's native C++ fast path (`tpuslam/native/`) is not
-copied: this module is the port's only codec.
+A native C++ fast path (`tpuslam_torch.native`) handles bulk decode; this
+module is the reference implementation and fallback.
 """
 from __future__ import annotations
 

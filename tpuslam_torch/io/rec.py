@@ -1,6 +1,7 @@
 """.rec recording files: write, indexed read, and paced replay. A copy of
-`tpuslam.io.rec` without its native scan (`tpuslam/native/` is not
-copied): `read_rec` frames envelopes in Python, with the same result.
+`tpuslam.io.rec`: `read_rec` frames envelopes with the native C++ scan
+(`tpuslam_torch.native.codec`) when it builds, in Python otherwise, with the
+same result.
 
 The `.rec` format is simply a concatenation of framed envelopes; libcluon's
 `Player` builds a chronological index over sample timestamps and replays with
@@ -43,9 +44,15 @@ class RecWriter:
 
 
 def read_rec(path: str) -> Iterator[M.Envelope]:
-    """Stream envelopes from a .rec file."""
+    """Stream envelopes from a .rec file (native fast scan when available)."""
     with open(path, "rb") as f:
         buf = f.read()
+    from tpuslam_torch.io import proto
+    from tpuslam_torch.native import codec as native_codec
+    if native_codec.available():
+        for off, ln in native_codec.scan_frames(buf):
+            yield proto.decode(M.Envelope, buf[off:off + ln])
+        return
     yield from E.iterate_envelopes(buf)
 
 

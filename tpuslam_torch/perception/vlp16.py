@@ -1,6 +1,7 @@
 """VLP-16 lidar decoding: raw UDP packets and PointCloudReading messages.
-A copy of `tpuslam.perception.vlp16` (numpy only). The loader of the
-calibration XML (`tpuslam/perception/calib.py`) is not ported yet.
+A copy of `tpuslam.perception.vlp16` (numpy only). The calibration XML is
+read by `perception.calib.load_calibration`, whose object
+`decode_point_cloud_reading(calib=...)` takes.
 
 The reference pipeline's point clouds come from a `proxy-velodyne16` service
 (reference usecase/docker-compose.yml:19-28) configured by a boost-serialized
