@@ -147,6 +147,19 @@ Phases, in order; the first that fails ends the run with exit code 1:
                rank. No kernel is launched (no command sets a kernel
                switch, as in the JAX package), and no PNG is asked for
                (the machine has no matplotlib).
+  deploy   — the deployment surface: the multi-process smoke
+               (`tpuslam_torch.deploy.multihost_smoke`) in groups of
+               DEPLOY_PROCS spawned ranks (one NCCL rank, then gloo ranks on
+               cuda:0), every rank's multi-session GN and fleet held to its
+               single-device solve, and its death case (the last rank
+               SIGKILLed once up; the survivors must exit nonzero, not
+               hang); `tpuslam_torch.scripts.bench_chain_solvers` at its
+               default sizes on one NCCL rank, each row's n_shared held to
+               the CPU plan's; the wheel of the tree built and installed
+               with --target, and in a fresh process with nothing of the
+               checkout on its path both kernels built by nvcc from that
+               copy and each launched once against its twin. No kernel is
+               launched in this process.
 It prints a `{"kernels": [...]}` line, the card's name and power limit as
 nvidia-smi gives them, and last `{"ok": true, "device": {...}}`. Without a
 CUDA device it fails before any phase. It imports no JAX.
@@ -195,6 +208,7 @@ from tpuslam_torch.perception.vlp16 import decode_point_cloud_reading
 from tpuslam_torch.runtime.checkpoint import load_checkpoint, save_checkpoint
 from tpuslam_torch.runtime.config import SlamConfig
 from tpuslam_torch.runtime.service import SlamService, scenario_to_rec
+from tpuslam_torch.scripts.bench_chain_solvers import card, synth as chain_synth
 from tpuslam_torch.sim import SimConfig, acceleration, ate, simulate, skidpad, trackdrive
 from tpuslam_torch.sim.vlp16_sim import (
     Vlp16SceneConfig, render_scene, scene_to_point_cloud_reading,
@@ -454,6 +468,60 @@ CLI_BLOCK = 32
 CLI_SIM = SimConfig(laps=1.3, seed=0)
 CLI_FUSE = ["fuse", "--sessions", "2"]
 
+# phase `deploy`: the multi-process smoke (tpuslam_torch/deploy/
+# multihost_smoke.py) in groups of DEPLOY_PROCS ranks (one NCCL rank, then
+# gloo ranks on cuda:0) and its death case on the largest group; the chain
+# script (tpuslam_torch/scripts/bench_chain_solvers.py) at its default sizes
+# on one NCCL rank; the wheel of the tree installed with --target and, in a
+# fresh process with nothing of the checkout on its path, both kernels built
+# from it and checked: the association at the lap shape bit-equal to its
+# twin, the Cholesky at DEPLOY_CHOL_N within phase 2's tolerance
+DEPLOY_PROCS = (1, 2)
+DEPLOY_PG_TIMEOUT_S, DEPLOY_GROUP_TIMEOUT_S, DEPLOY_SURVIVOR_TIMEOUT_S = 60.0, 300.0, 90.0
+DEPLOY_CHAIN_SIZES = "256,1024,2048"
+DEPLOY_CHOL_N = 768
+PIP = (sys.executable, "-m", "pip", "--disable-pip-version-check")
+# the fresh process of the installed copy: argv = (install dir, inputs file)
+INSTALLED_CHECK = """
+import json, sys, time
+import torch
+inst, inputs = sys.argv[1], sys.argv[2]
+from tpuslam_torch import _build
+from tpuslam_torch.ops import assoc_kernel as A
+from tpuslam_torch.ops import cholesky as C
+t0 = time.perf_counter()
+_build.build_all()
+build_s = time.perf_counter() - t0
+ins = torch.load(inputs)
+assoc = [x.cuda() for x in ins["assoc"]]
+a = ins["chol"].cuda()
+got = A.associate_kernel(*assoc, ins["gate2"])
+want = A.associate_plain(*assoc, ins["gate2"])
+L, L_plain = C.cholesky_kernel(a), C.cholesky_plain(a)
+launches = {"assoc": A.launches, "cholesky": C.launches}
+
+def ms(fn, reps):
+    fn()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / reps
+
+print(json.dumps(dict(
+    package=_build.__file__, libs=[str(_build.lib_path(n)) for n in _build.SOURCES],
+    imported=sorted({m.split(".")[0] for m in sys.modules} & {"jax", "tpuslam"}),
+    build_s=build_s, launches=launches,
+    assoc_equal=all(torch.equal(g, w) for g, w in zip(got, want)),
+    assoc_matched=int(got[1].sum()), chol_err=float((L - L_plain).abs().max()),
+    chol_close=bool(torch.allclose(L, L_plain, atol=ins["atol"], rtol=ins["rtol"])),
+    assoc_ms=ms(lambda: A.associate_kernel(*assoc, ins["gate2"]), 100),
+    chol_ms=ms(lambda: C.cholesky_kernel(a), 20))))
+"""
+
 
 def cli_call(argv):
     """(stdout, stderr, wall seconds) of one `cli.main.main(argv)` call in
@@ -521,6 +589,35 @@ def traced_blocked_lap_in_child(logdir, timeout_s=300):
                              f"{done.stderr[-2000:]}")
     return {**json.loads(done.stdout.strip().splitlines()[-1]),
             "wall_s": time.perf_counter() - t0}
+
+
+def run_checked(cmd, what, **kw):
+    """`subprocess.run(cmd)` with its output captured; raises with the
+    output's tail when the command fails."""
+    done = subprocess.run(cmd, capture_output=True, text=True, **kw)
+    if done.returncode != 0:
+        raise AssertionError(f"{what}: exit {done.returncode}: "
+                             f"{(done.stdout + done.stderr)[-2000:]}")
+    return done
+
+
+def tree_wheel(dest):
+    """The wheel of this checkout (`pip wheel --no-deps --no-build-isolation`)
+    built into `dest`/wheel from a copy of the package sources under `dest`
+    (setuptools writes build/ and an egg-info beside the sources it builds),
+    the built libraries left out. Returns the wheel's path."""
+    import shutil
+    from pathlib import Path
+    root, src = Path(__file__).resolve().parent, Path(dest) / "src"
+    src.mkdir(parents=True)
+    shutil.copy(root / "pyproject.toml", src)
+    for pkg in ("tpuslam", "tpuslam_torch"):
+        shutil.copytree(root / pkg, src / pkg,
+                        ignore=shutil.ignore_patterns("build", "__pycache__", "*.pyc"))
+    run_checked([*PIP, "wheel", "--no-deps", "--no-build-isolation", "--no-index", "-w",
+                 str(Path(dest) / "wheel"), str(src)], "pip wheel")
+    (wheel,) = (Path(dest) / "wheel").glob("*.whl")
+    return wheel
 
 
 def timed(fn):
@@ -1412,46 +1509,6 @@ def gloo_rank(rank, port, workdir):
     torch.save(_to(out, "cpu"), os.path.join(workdir, f"rank{rank}.pt"))
 
 
-def chain_synth(n_poses: int, n_lm: int, device="cuda"):
-    """scripts/bench_chain_solvers.py's `synth` (bench_scaling.py's chain
-    graph) in numpy, the same draws from seed 0: a circular track of
-    `n_poses` keyframes and `n_lm` cones, each pose observing its 6 nearest
-    cones; capacity (n_poses, n_lm, 8 n_poses)."""
-    from tpuslam_torch.backend.graph import empty_graph
-    cap = GraphCapacity(max_poses=n_poses, max_landmarks=n_lm, max_obs=n_poses * 8)
-    rng = np.random.default_rng(0)
-    t = np.linspace(0, 2 * np.pi, n_poses, endpoint=False)
-    poses = np.stack([40 * np.cos(t), 40 * np.sin(t), t + np.pi / 2], -1)
-    tl = np.linspace(0, 2 * np.pi, n_lm, endpoint=False)
-    lm = np.stack([45 * np.cos(tl), 45 * np.sin(tl)], -1)
-    odo = np.zeros((n_poses, 3), np.float32)
-    for k in range(1, n_poses):
-        d = poses[k, :2] - poses[k - 1, :2]
-        c, s = np.cos(poses[k - 1, 2]), np.sin(poses[k - 1, 2])
-        odo[k] = [c * d[0] + s * d[1], -s * d[0] + c * d[1], poses[k, 2] - poses[k - 1, 2]]
-    obs_p, obs_l, obs_xy = [], [], []
-    for k in range(n_poses):
-        d2 = ((lm - poses[k, :2]) ** 2).sum(1)
-        for j in np.argsort(d2)[:6]:
-            dd = lm[j] - poses[k, :2]
-            c, s = np.cos(poses[k, 2]), np.sin(poses[k, 2])
-            obs_p.append(k)
-            obs_l.append(j)
-            obs_xy.append([c * dd[0] + s * dd[1] + rng.normal(0, .05),
-                           -s * dd[0] + c * dd[1] + rng.normal(0, .05)])
-    n_obs, pad = len(obs_p), cap.max_obs - len(obs_p)
-
-    def t(x, dtype=torch.float32):
-        return torch.tensor(np.asarray(x), dtype=dtype, device=device)
-    return dataclasses.replace(
-        empty_graph(cap, device),
-        poses=t(poses + rng.normal(0, .1, poses.shape)), lm_xy=t(lm + rng.normal(0, .2, lm.shape)),
-        odo_meas=t(odo), obs_pose=t(np.pad(obs_p, (0, pad)), torch.int32),
-        obs_lm=t(np.pad(obs_l, (0, pad)), torch.int32),
-        obs_xy=t(np.pad(obs_xy, ((0, pad), (0, 0)))), n_poses=t(n_poses, torch.int32),
-        n_landmarks=t(n_lm, torch.int32), n_obs=t(n_obs, torch.int32))
-
-
 def chain_solve(g, cfg, mesh, solver):
     """One of CHAIN_SOLVERS on `g` over the chain `mesh`: hier at tray 2
     (tray 1 on a mesh of one), hier3 at the layout `chain_optimize` picks."""
@@ -1687,9 +1744,7 @@ def compare_mesh_lap(what, got, want):
 
 class Smoke:
     def __init__(self):
-        self.card = subprocess.run(
-            ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-            capture_output=True, text=True, check=True).stdout.strip().splitlines()[0]
+        self.card = card()
         self.track, self.scen = scenario()
         self.kernels = {
             "assoc": dict(name="assoc", route="cuda", source="tpuslam_torch/csrc/assoc.cu",
@@ -3236,6 +3291,99 @@ class Smoke:
             raise AssertionError(f"cli: kernel launches {launches}: hold them to their twins")
         self.log(f"cli: kernel launches {launches}")
 
+    def deploy(self):
+        """The deployment surface on the card (see the module docstring):
+        the multi-process smoke and its death case, the chain script, the
+        installed copy. No kernel is launched in this process."""
+        from tpuslam_torch.deploy import multihost_smoke as MS
+        from tpuslam_torch.parallel.chain import partition_chain
+        from tpuslam_torch.scripts import bench_chain_solvers as BCS
+        if torch.distributed.is_initialized():
+            raise AssertionError("deploy: a process group is left from an earlier phase")
+        A.launches = C.launches = 0
+        for n in DEPLOY_PROCS:
+            r = MS.run_group(n, "cuda", timeout_s=DEPLOY_GROUP_TIMEOUT_S,
+                             pg_timeout_s=DEPLOY_PG_TIMEOUT_S)
+            want = "nccl" if n <= torch.cuda.device_count() else "gloo"
+            if not r["ok"] or r["backend"] != [want]:
+                raise AssertionError(f"deploy: the smoke of {n} rank(s), {want} wanted: "
+                                     f"{json.dumps(r)}")
+            ws = r["workers"]
+            gn_err = max(w["max_abs_err_vs_single_device"] for w in ws)
+            fleet_err = max(w["fleet_max_abs_err"] for w in ws)
+            self.log(f"deploy: multi-process smoke, {n} rank(s), {want}: every rank ok and "
+                     f"fleet_blocked_ok; GN within {gn_err:.3g} of the single-device solve, "
+                     f"fleet within {fleet_err:.3g} (atol {MS.SMOKE_ATOL}); {r['seconds']:.1f} s "
+                     f"with the spawn [{self.card}]")
+        d = MS.run_death_case(max(DEPLOY_PROCS), "cuda",
+                              survivor_timeout_s=DEPLOY_SURVIVOR_TIMEOUT_S,
+                              pg_timeout_s=DEPLOY_PG_TIMEOUT_S)
+        if not (d["ok"] and d["no_hang"]):
+            raise AssertionError(f"deploy: the death case: {json.dumps(d)}")
+        self.log(f"deploy: death case, {d['procs']} ranks, the last SIGKILLed once up: "
+                 f"survivor codes {d['survivor_rcs']}, running at the kill "
+                 f"{d['running_at_kill']}, out {d['survivors_left_s']:.2f} s after it, no hang; "
+                 f"{d['seconds']:.1f} s in all")
+
+        t0 = time.perf_counter()
+        rows = BCS.main(["--sizes", DEPLOY_CHAIN_SIZES])
+        if torch.distributed.is_initialized():
+            raise AssertionError("deploy: bench_chain_solvers left its process group")
+        for row in rows:
+            want = partition_chain(chain_synth(row["poses"], row["landmarks"], "cpu"), 1).n_shared
+            times = (row["replicated_ms"], row["dd_ms"], row["speedup"])
+            if row["n_shared"] != want or not all(np.isfinite(t) and t > 0 for t in times):
+                raise AssertionError(f"deploy: bench_chain_solvers row {row}, n_shared {want} "
+                                     "on the CPU")
+            self.log(f"deploy: bench_chain_solvers, one NCCL rank: {json.dumps(row)} "
+                     f"[{self.card}]")
+        self.log(f"deploy: bench_chain_solvers in {time.perf_counter() - t0:.1f} s; each "
+                 "n_shared equal to the CPU plan's")
+
+        self.installed_copy()
+        launches = {"assoc": A.launches, "cholesky": C.launches}
+        if any(launches.values()):
+            raise AssertionError(f"deploy: kernel launches in this process {launches}")
+
+    def installed_copy(self):
+        """The wheel of the tree installed with --target into a temporary
+        directory; in a fresh process with that directory as its only path
+        to the package (run from outside the checkout), `_build.build_all()`
+        with nvcc, then one association launch at the lap shape held
+        bit-equal to its twin and one Cholesky at DEPLOY_CHOL_N held to its
+        twin within phase 2's tolerance."""
+        t0 = time.perf_counter()
+        with tempfile.TemporaryDirectory() as tmp:
+            wheel = tree_wheel(tmp)
+            inst = os.path.join(tmp, "installed")
+            run_checked([*PIP, "install", "--no-deps", "--no-index", "--target", inst,
+                         str(wheel)], "pip install --target")
+            n, m = ASSOC_SHAPES["lap"]
+            inputs = os.path.join(tmp, "inputs.pt")
+            torch.save(dict(assoc=[x.cpu() for x in assoc_world(n, m, 0)[:4]], gate2=1.44,
+                            chol=spd(DEPLOY_CHOL_N).cpu(), atol=CHOL_ATOL, rtol=CHOL_RTOL),
+                       inputs)
+            installed_s = time.perf_counter() - t0
+            env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+            env["PYTHONPATH"] = inst
+            done = run_checked([sys.executable, "-c", INSTALLED_CHECK, inst, inputs],
+                               "the installed copy", cwd=tmp, env=env, timeout=600)
+            r = json.loads(done.stdout.strip().splitlines()[-1])
+        if not (r["package"].startswith(inst) and all(p.startswith(inst) for p in r["libs"])):
+            raise AssertionError(f"deploy: the installed copy imported or built outside "
+                                 f"{inst}: {r}")
+        if not (r["assoc_equal"] and r["chol_close"] and not r["imported"]
+                and r["launches"] == {"assoc": 1, "cholesky": 1}):
+            raise AssertionError(f"deploy: the installed copy's kernels: {r}")
+        self.log(f"deploy: the installed copy (wheel built and installed with --target in "
+                 f"{installed_s:.1f} s): both kernels built by nvcc from it in "
+                 f"{r['build_s']:.1f} s; assoc N={n} M={m} bit-equal to its twin "
+                 f"({r['assoc_matched']} matched), {r['assoc_ms'] * 1e3:.2f} us per wrapper "
+                 f"call; cholesky n={DEPLOY_CHOL_N} max|kernel - plain| = {r['chol_err']:.3g} "
+                 f"(atol {CHOL_ATOL}, rtol {CHOL_RTOL}), {r['chol_ms'] * 1e3:.1f} us per "
+                 f"call; one launch each [{self.card}]")
+        self.log(f"deploy: the installed copy in {time.perf_counter() - t0:.1f} s in all")
+
     @staticmethod
     def laps(obs, valid, poses):
         """name -> one lap: the per-frame engine and the blocked pipeline
@@ -3735,7 +3883,7 @@ def main() -> int:
     phases = (smoke.build, smoke.kernels_vs_plain, smoke.compat, smoke.kernel_association,
               smoke.blocked, smoke.improved, smoke.batched, smoke.fusion, smoke.service,
               smoke.lidar, smoke.closure_solve, smoke.timing, smoke.parallel, smoke.chain,
-              smoke.resident, smoke.cli)
+              smoke.resident, smoke.cli, smoke.deploy)
     if sys.argv[1:] == ["--assoc-plans"]:
         phases = (smoke.build, smoke.assoc_plans, smoke.assoc_host)
     elif sys.argv[1:]:

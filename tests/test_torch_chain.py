@@ -58,6 +58,7 @@ RO_CONFIGS = {"first": ({}, 16), "nearest": (dict(association="nearest"), 16),
 RO_STRUCTURE = ("improved", "midblock")
 RO_ATOL, RO_STRUCT_ATOL = 2e-3, 5e-2
 RO_MESHES = (1, 2, 4, 8)
+BENCH_SIZE = 64             # the chain script's graph in the world (synth(64, 64))
 
 
 @pytest.fixture(autouse=True, scope="module")
@@ -269,6 +270,8 @@ def _resident_online_cases(ro):
         res["cuda_refused"] = None
     except RuntimeError as e:
         res["cuda_refused"] = str(e)
+    # with no device, the blocks lie on the mesh's device
+    res["shard_devices"] = sorted({str(x.device) for x in RO.initial_shards(dims[1], meshes[8])})
     # the branch-agreement rule: agreed flags come back, differing ones
     # raise on every rank
     res["agreed"] = RO._agreed([torch.tensor([3, 1]), torch.tensor(7)], meshes[8], "map")
@@ -309,6 +312,9 @@ def _rank_main(rank, world, port, out_dir):
     try:
         out = _rank_cases(inputs)
         out["ro"], out["ro_d"] = _resident_online_cases(inputs["ro"])
+        from tpuslam_torch.scripts import bench_chain_solvers
+        out["bench"] = bench_chain_solvers.main(["--sizes", str(BENCH_SIZE), "--reps", "1",
+                                                 "--device", "cpu"])
     finally:
         dist.destroy_process_group()
     with open(os.path.join(out_dir, f"rank{rank}.pkl"), "wb") as f:
@@ -981,6 +987,50 @@ def test_resident_online_cuda_mesh_without_a_card_raises(port):
     raises on a machine without a card, on every rank."""
     for r in port:
         assert "no CUDA device" in r["ro"]["cuda_refused"]
+
+
+def test_initial_shards_lie_on_the_mesh_device(port):
+    """`initial_shards` with no device puts this rank's blocks on the mesh's
+    device: the CPU on the CPU mesh of every rank. A cuda mesh on a machine
+    without a card raises, and an explicit device still wins."""
+    from tpuslam_torch.parallel.resident_online import initial_shards
+    for r in port:
+        assert r["ro"]["shard_devices"] == ["cpu"]
+
+    class CudaMesh:     # a rank's view of a cuda ('map',) mesh of one rank
+        device_type, mesh_dim_names = "cuda", ("map",)
+
+        def get_coordinate(self):
+            return [0]
+
+        def get_local_rank(self, dim):
+            return 0
+
+        def size(self, dim=0):
+            return 1
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        initial_shards(8, CudaMesh())
+    assert {x.device.type for x in initial_shards(8, CudaMesh(), device="cpu")} == {"cpu"}
+
+
+def test_bench_chain_solvers_in_the_world(port, built):
+    """The chain script (`tpuslam_torch.scripts.bench_chain_solvers.main`)
+    on the world of 8 gloo ranks, as `torchrun --nproc-per-node 8` would run
+    it: every rank returns one row with the JAX script's keys, the same
+    n_shared on every rank and equal to the JAX `partition_chain` of the JAX
+    script's `synth` over 8 shards, and positive times."""
+    from tests.test_torch_deploy import load_jax_chain_script
+    from tpuslam.parallel.chain import partition_chain
+    want = partition_chain(load_jax_chain_script().synth(BENCH_SIZE, BENCH_SIZE), WORLD).n_shared
+    assert want > 0
+    for r in port:
+        (row,) = r["bench"]
+        assert set(row) == {"poses", "landmarks", "n_shared", "replicated_ms", "dd_ms",
+                            "speedup"}
+        assert (row["poses"], row["landmarks"], row["n_shared"]) == (BENCH_SIZE, BENCH_SIZE,
+                                                                      want)
+        assert row["replicated_ms"] > 0 and row["dd_ms"] > 0
+        assert row["speedup"] == pytest.approx(row["replicated_ms"] / row["dd_ms"])
 
 
 def test_resident_online_rejects_unsupported():

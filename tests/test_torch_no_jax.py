@@ -6,7 +6,8 @@ batched sessions, the fusion, the live service with its IO stack, EKF,
 WGS84 projection and checkpoint, the lidar front-end, the per-frame batched
 engine, the multi-device tier on `torch.distributed`, its pose-chain
 solvers, the map-resident online pass, the CLI, the entry points, the viewer,
-the native codec's bindings and the OD4 tooling among them), `chip_smoke`
+the native codec's bindings, the OD4 tooling, the multi-process smoke and the
+chain-solver script among them), `chip_smoke`
 and the GPU tests `tests/test_torch_cuda.py` import; asking for a PNG there
 raises ImportError naming matplotlib; `python -m tpuslam_torch.cli.main
 --help` runs."""
@@ -63,7 +64,9 @@ from tpuslam_torch.runtime.checkpoint import load_checkpoint, save_checkpoint
 from tpuslam_torch.runtime.metrics import MetricsRegistry
 from tpuslam_torch.runtime.service import SlamService, scenario_to_rec
 from tpuslam_torch.sim.vlp16_sim import render_scene, scene_to_point_cloud_reading
-from tpuslam_torch.cli.main import main
+from tpuslam_torch.cli.main import build_parser, main
+from tpuslam_torch.deploy.multihost_smoke import build_session, run_death_case, run_group, worker
+from tpuslam_torch.scripts.bench_chain_solvers import main, synth
 from tpuslam_torch.entry import dryrun_multichip, entry
 from tpuslam_torch.io import codecs, exporters, msc, odvd, shm, standard_message_set, tcp
 from tpuslam_torch.native import codec, receiver
@@ -78,6 +81,8 @@ try:
     raise SystemExit("a PNG was rendered without matplotlib")
 except ImportError as e:
     assert "matplotlib" in str(e), e
+build_session(GraphCapacity(8, 4, 16), 0, "cpu")
+synth(8, 8, "cpu")
 import chip_smoke
 sys.path.insert(0, "tests")
 import test_torch_cuda

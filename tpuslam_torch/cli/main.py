@@ -21,8 +21,9 @@ embedded cluon tools + the service main):
 cuda run without a card exits 2 with a message naming the device, and never
 falls back to the CPU. The commands that need a process group (`sim
 --pipeline resident`, `fuse` with a mesh or a chain solver) use the caller's
-(e.g. one started by torchrun) as it is, or make a world of one rank ('nccl'
-on the card, 'gloo' on the CPU) and destroy it before they return.
+as it is, or join the world `torchrun` describes in the environment, or
+make a world of one rank ('nccl' on the card, 'gloo' on the CPU), and
+destroy a world they made before they return (`parallel.mesh.process_group`).
 """
 from __future__ import annotations
 
@@ -32,7 +33,7 @@ import json
 import sys
 import time
 from collections import Counter
-from contextlib import ExitStack, contextmanager
+from contextlib import ExitStack
 
 
 def _add_reference_flags(p: argparse.ArgumentParser):
@@ -115,22 +116,6 @@ def _device_missing(args) -> bool:
               "(pass --device cpu to run on the CPU)", file=sys.stderr)
         return True
     return False
-
-
-@contextmanager
-def _world(device):
-    """The caller's process group, or a world of one rank made here ('nccl'
-    for a CUDA device, 'gloo' for the CPU) and destroyed on exit. Yields
-    the world size."""
-    import torch
-    import torch.distributed as dist
-    from tpuslam_torch.parallel.mesh import initialize_distributed
-    made = initialize_distributed("nccl" if torch.device(device).type == "cuda" else "gloo")
-    try:
-        yield dist.get_world_size()
-    finally:
-        if made:
-            dist.destroy_process_group()
 
 
 def _sync(device):
@@ -253,14 +238,14 @@ def cmd_sim(args):
         poses = torch.tensor(scen.odom_poses, dtype=torch.float32, device=args.device)
         with ExitStack() as stack:
             if args.pipeline == "resident":
-                from tpuslam_torch.parallel.mesh import make_map_mesh
+                from tpuslam_torch.parallel.mesh import make_map_mesh, process_group
                 from tpuslam_torch.parallel.resident_online import (
                     run_pass_resident_online)
                 if args.map_shards < 0:
                     print("[slamctl] --map-shards must be >= 0",
                           file=sys.stderr)
                     return 2
-                world = stack.enter_context(_world(args.device))
+                world = stack.enter_context(process_group(args.device))
                 req = args.map_shards or world
                 d = max(1, min(req, world))
                 while cfg.capacity.max_landmarks % d:
@@ -385,7 +370,8 @@ def cmd_fuse(args):
         mesh = None
         solve_mesh = None
         if args.mesh_shards > 1 or args.solver != "auto":
-            world = stack.enter_context(_world(dev))
+            from tpuslam_torch.parallel.mesh import process_group
+            world = stack.enter_context(process_group(dev))
         if args.mesh_shards > 1:
             if world < args.mesh_shards:
                 print(f"[slamctl] --mesh-shards {args.mesh_shards} > "
@@ -585,7 +571,9 @@ def cmd_msc(args):
     return 0
 
 
-def main(argv=None):
+def build_parser() -> argparse.ArgumentParser:
+    """The parser of `slamctl-torch`: each subcommand's parser sets `fn`,
+    the function `main` calls with the parsed arguments."""
     p = argparse.ArgumentParser(prog="slamctl-torch",
                                 description="landmark GraphSLAM on PyTorch (CUDA or CPU)")
     sub = p.add_subparsers(dest="cmd", required=True)
@@ -736,8 +724,11 @@ def main(argv=None):
         # pre-subcommand --device (argparse overwrites parent defaults)
         sp.add_argument("--device", choices=["cuda", "cpu"],
                         default=argparse.SUPPRESS, help=argparse.SUPPRESS)
+    return p
 
-    args = p.parse_args(argv)
+
+def main(argv=None):
+    args = build_parser().parse_args(argv)
     return args.fn(args)
 
 

@@ -24,7 +24,9 @@ is a real process group whose collectives are identities.
 """
 from __future__ import annotations
 
+import contextlib
 import datetime
+import os
 import socket
 
 import torch
@@ -32,7 +34,7 @@ import torch.distributed as dist
 from torch.distributed.device_mesh import DeviceMesh
 
 __all__ = ["make_slam_mesh", "make_chain_mesh", "make_map_mesh", "initialize_distributed",
-           "free_port"]
+           "free_port", "backend_for", "process_group"]
 
 
 def free_port() -> int:
@@ -71,6 +73,35 @@ def initialize_distributed(backend: str, coordinator_address: str | None = None,
     dist.init_process_group(backend, init_method=coordinator_address,
                             world_size=num_processes, rank=process_id, **kw)
     return True
+
+
+def backend_for(device, world_size: int = 1) -> str:
+    """'nccl' for a CUDA device when the world has a card for each rank
+    (NCCL refuses two ranks on one card), else 'gloo' (which reduces CUDA
+    tensors through the host)."""
+    if torch.device(device).type == "cuda" and world_size <= torch.cuda.device_count():
+        return "nccl"
+    return "gloo"
+
+
+@contextlib.contextmanager
+def process_group(device, timeout_s: float | None = None):
+    """The caller's process group as it is; else the world `torchrun`
+    describes in the environment (RANK, WORLD_SIZE, MASTER_ADDR,
+    MASTER_PORT); else a world of one rank. A group made here takes
+    `backend_for(device, world size)` and is destroyed on exit. Yields the
+    world size."""
+    env = os.environ
+    n, rank, addr = 1, 0, None
+    if "WORLD_SIZE" in env and "MASTER_ADDR" in env:
+        n, rank = int(env["WORLD_SIZE"]), int(env.get("RANK", 0))
+        addr = f"{env['MASTER_ADDR']}:{env['MASTER_PORT']}" if n > 1 else None
+    made = initialize_distributed(backend_for(device, n), addr, n, rank, timeout_s=timeout_s)
+    try:
+        yield dist.get_world_size()
+    finally:
+        if made:
+            dist.destroy_process_group()
 
 
 def _check(device_type: str) -> int:

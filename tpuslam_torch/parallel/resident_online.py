@@ -101,10 +101,16 @@ def initial_shards(L_global: int, mesh, axis: str = "map", device=None):
     of a fresh map of `L_global` landmarks over `mesh[axis]`, which must
     divide it. Unlike the JAX package's, which returns the global arrays
     for `shard_map` to split, it makes the block alone: no rank holds the
-    whole map."""
+    whole map. The block lies on `device`, by default this rank's device of
+    the mesh: `cuda:<current device>` on a cuda mesh, the CPU on a cpu one."""
     _, d = shard(mesh, axis)
     if L_global % d:
         raise ValueError(f"{L_global} landmarks do not divide over {d} '{axis}' shards")
+    if device is None:
+        if mesh.device_type == "cuda" and not torch.cuda.is_available():
+            raise RuntimeError("a cuda mesh, but no CUDA device is available")
+        device = (torch.device("cuda", torch.cuda.current_device())
+                  if mesh.device_type == "cuda" else torch.device(mesh.device_type))
     lb = L_global // d
     return (torch.zeros((lb, 2), device=device), torch.zeros(lb, dtype=_I32, device=device),
             torch.zeros((lb, 3), device=device))
