@@ -1364,12 +1364,15 @@ def profile_counts(fn):
     """(device busy ms, kernel launches, device-to-host copies) of one call
     of `fn` under torch.profiler: device time summed over kernels and
     copies. The profiler records the device activity alone, which costs far
-    less than host ops too on a run of ~100,000 launches."""
+    less than host ops too on a run of ~100,000 launches. The program's
+    `slam.*` spans, which the device rows may show as annotations, are
+    neither launches nor busy time."""
     from torch.profiler import ProfilerActivity, profile
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
         fn()
         torch.cuda.synchronize()
-    dev = [e for e in prof.key_averages() if e.device_type.name == "CUDA"]
+    dev = [e for e in prof.key_averages()
+           if e.device_type.name == "CUDA" and not e.key.startswith("slam.")]
     return (sum(e.self_device_time_total for e in dev) / 1e3,
             sum(e.count for e in dev if not e.key.startswith(("Memcpy", "Memset"))),
             sum(e.count for e in dev if e.key.startswith("Memcpy DtoH")))

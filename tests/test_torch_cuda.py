@@ -69,8 +69,9 @@ def test_assoc_kernel_is_one_launch(cuda):
         torch.cuda.synchronize()
     assert A.launches == before + 2 * len(worlds)
     assert [t.shape for t in empty] == [(0,)] * 3
+    # the wrapper's `slam.assoc` span shows on the device too, as an annotation
     kernels = {e.key: e.count for e in prof.key_averages() if e.device_type.name == "CUDA"
-               and not e.key.startswith(("Memcpy", "Memset"))}
+               and not e.key.startswith(("Memcpy", "Memset", "slam."))}
     assert sum(kernels.values()) == 2 * len(worlds), kernels
     assert all("assoc_kernel" in k for k in kernels), kernels
 

@@ -72,7 +72,7 @@ from tpuslam_torch.io import codecs, exporters, msc, odvd, shm, standard_message
 from tpuslam_torch.native import codec, receiver
 from tpuslam_torch.perception.calib import default_calibration_path, load_calibration
 from tpuslam_torch.runtime.odconfig import attention_from_od_config
-from tpuslam_torch.runtime.tracing import annotate_fn, stage, trace_session
+from tpuslam_torch.runtime.tracing import stage, trace_session
 from tpuslam_torch.viz import LiveViewer, save_state_png
 from tpuslam_torch.frontend.state import initial_state
 from tpuslam_torch.backend.graph import GraphCapacity

@@ -57,6 +57,7 @@ from tpuslam_torch import compat
 from tpuslam_torch.backend.graph import FactorGraph
 from tpuslam_torch.backend.residuals import landmark_residuals, odometry_residuals
 from tpuslam_torch.geometry import se2
+from tpuslam_torch.runtime.tracing import stage
 
 __all__ = ["GNConfig", "assemble", "schur_solve", "schur_solve_split",
            "gn_step", "optimize", "window_gn_step", "optimize_window", "chi2"]
@@ -430,16 +431,17 @@ def _iterate_batched(g: FactorGraph, cfg: GNConfig, step, enable) -> FactorGraph
     running = (torch.ones(g.poses.shape[:1], dtype=torch.bool, device=g.poses.device)
                if enable is None else enable.to(device=g.poses.device, dtype=torch.bool))
     for _ in range(cfg.iterations):
-        g2 = step(g)
-        delta = torch.maximum(torch.amax(torch.abs(g2.poses - g.poses), dim=(-2, -1)),
-                              torch.amax(torch.abs(g2.lm_xy - g.lm_xy), dim=(-2, -1)))
-        g = dataclasses.replace(
-            g, poses=torch.where(running[:, None, None], g2.poses, g.poses),
-            lm_xy=torch.where(running[:, None, None], g2.lm_xy, g.lm_xy))
-        if tol > 0.0:
-            running = running & (delta > tol)
-            if not bool(running.any()):
-                break
+        with stage("slam.gn.iteration"):
+            g2 = step(g)
+            delta = torch.maximum(torch.amax(torch.abs(g2.poses - g.poses), dim=(-2, -1)),
+                                  torch.amax(torch.abs(g2.lm_xy - g.lm_xy), dim=(-2, -1)))
+            g = dataclasses.replace(
+                g, poses=torch.where(running[:, None, None], g2.poses, g.poses),
+                lm_xy=torch.where(running[:, None, None], g2.lm_xy, g.lm_xy))
+            if tol > 0.0:
+                running = running & (delta > tol)
+                if not bool(running.any()):
+                    break
     return g
 
 
@@ -463,12 +465,13 @@ def _iterate(g: FactorGraph, cfg: GNConfig, step, enable) -> FactorGraph:
     if enable is not None and not bool(enable):
         return g
     for _ in range(cfg.iterations):
-        g2 = step(g)
-        delta = torch.maximum(torch.max(torch.abs(g2.poses - g.poses)),
-                              torch.max(torch.abs(g2.lm_xy - g.lm_xy)))
-        g = g2
-        if cfg.early_exit_tol > 0.0 and float(delta) <= cfg.early_exit_tol:
-            break
+        with stage("slam.gn.iteration"):
+            g2 = step(g)
+            delta = torch.maximum(torch.max(torch.abs(g2.poses - g.poses)),
+                                  torch.max(torch.abs(g2.lm_xy - g.lm_xy)))
+            g = g2
+            if cfg.early_exit_tol > 0.0 and float(delta) <= cfg.early_exit_tol:
+                break
     return g
 
 

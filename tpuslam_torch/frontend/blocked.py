@@ -104,6 +104,7 @@ from tpuslam_torch.frontend.state import (
 from tpuslam_torch.geometry import se2
 from tpuslam_torch.geometry.spherical import cone_to_global, global_to_body_spherical
 from tpuslam_torch.runtime.config import SlamConfig
+from tpuslam_torch.runtime.tracing import stage
 
 __all__ = ["run_sequence_blocked", "run_pass_blocked", "blocked_supported",
            "blocked_core", "blocked_core_batched", "run_sequences_blocked_batched"]
@@ -875,44 +876,45 @@ def blocked_core_batched(states: SlamState, obs_seq, valid_seq, pose_seq, cfg: S
     for ib in range(nb):
         if not any(mapping):
             break
-        f = slice(ib * B, (ib + 1) * B)
-        live = torch.tensor(mapping, device=dev)
-        ns, outs, aux = _mapping_block(states, obs_c[:, f], valid_c[:, f], pose_seq[:, f],
-                                       okp_all[:, f] & live[:, None], first_valid[:, f],
-                                       overflow[:, f], cfg, assoc_mesh)
-        fires = _periodic_fires(states.keyframe_count, aux["ins"], aux["n_lm_series"],
-                                cfg) if periodic else None
-        (fb, closed, kcf), fires = _read_flags(
-            (aux["fallback"], aux["closure_any"], aux["kc_frame"]), fires)
-        fell = [mapping[s] and bool(fb[s]) for s in range(S)]
-        if periodic:
-            pfb, ns, outs = _mapping_periodic(
-                ns, outs, aux, fires, [mapping[s] and not fell[s] for s in range(S)], closed,
-                kcf, obs_c[:, f], pose_seq[:, f], cfg)
-            fell = [fell[s] or pfb[s] for s in range(S)]
-        states = _hold(fell, ns, states)
-        map_parts.append(outs)
-        closing = [mapping[s] and not fell[s] and bool(closed[s]) for s in range(S)]
-        if any(closing):
-            # each closing session's (n_landmarks, currentConeIndex) and
-            # publish rows after its closure frame, for its packet and pose
-            # from the optimized map
-            at = torch.clamp(aux["kc_frame"], max=B - 1).long()[:, None]
-            rows = [torch.gather(aux["n_lm_series"], 1, at)[:, 0],
-                    torch.gather(aux["cur_series"], 1, at)[:, 0]]
-            if cfg.mapping_publish_refine:
-                rows += [_rows_at(x, at)[:, 0] for x in aux["pub_rows"]]
-            sel = torch.tensor(closing, device=dev)
-            kc_rows = rows if kc_rows is None else [
-                torch.where(sel.reshape(-1, *([1] * (a.dim() - 1))), a, b)
-                for a, b in zip(rows, kc_rows)]
-        for s in range(S):
-            if fell[s]:
-                done_upto[s] = ib * B
-            elif closing[s]:
-                kc_global[s] = ib * B + kcf[s]
-            if fell[s] or closing[s]:
-                mapping[s] = False
+        with stage("slam.mapping_block"):
+            f = slice(ib * B, (ib + 1) * B)
+            live = torch.tensor(mapping, device=dev)
+            ns, outs, aux = _mapping_block(states, obs_c[:, f], valid_c[:, f], pose_seq[:, f],
+                                           okp_all[:, f] & live[:, None], first_valid[:, f],
+                                           overflow[:, f], cfg, assoc_mesh)
+            fires = _periodic_fires(states.keyframe_count, aux["ins"], aux["n_lm_series"],
+                                    cfg) if periodic else None
+            (fb, closed, kcf), fires = _read_flags(
+                (aux["fallback"], aux["closure_any"], aux["kc_frame"]), fires)
+            fell = [mapping[s] and bool(fb[s]) for s in range(S)]
+            if periodic:
+                pfb, ns, outs = _mapping_periodic(
+                    ns, outs, aux, fires, [mapping[s] and not fell[s] for s in range(S)], closed,
+                    kcf, obs_c[:, f], pose_seq[:, f], cfg)
+                fell = [fell[s] or pfb[s] for s in range(S)]
+            states = _hold(fell, ns, states)
+            map_parts.append(outs)
+            closing = [mapping[s] and not fell[s] and bool(closed[s]) for s in range(S)]
+            if any(closing):
+                # each closing session's (n_landmarks, currentConeIndex) and
+                # publish rows after its closure frame, for its packet and pose
+                # from the optimized map
+                at = torch.clamp(aux["kc_frame"], max=B - 1).long()[:, None]
+                rows = [torch.gather(aux["n_lm_series"], 1, at)[:, 0],
+                        torch.gather(aux["cur_series"], 1, at)[:, 0]]
+                if cfg.mapping_publish_refine:
+                    rows += [_rows_at(x, at)[:, 0] for x in aux["pub_rows"]]
+                sel = torch.tensor(closing, device=dev)
+                kc_rows = rows if kc_rows is None else [
+                    torch.where(sel.reshape(-1, *([1] * (a.dim() - 1))), a, b)
+                    for a, b in zip(rows, kc_rows)]
+            for s in range(S):
+                if fell[s]:
+                    done_upto[s] = ib * B
+                elif closing[s]:
+                    kc_global[s] = ib * B + kcf[s]
+                if fell[s] or closing[s]:
+                    mapping[s] = False
 
     closed_now = [not frozen[s] and kc_global[s] < Tp and done_upto[s] == Tp for s in range(S)]
     if any(closed_now):
@@ -924,7 +926,8 @@ def blocked_core_batched(states: SlamState, obs_seq, valid_seq, pose_seq, cfg: S
         gcfg = _gn_config(cfg)
         if S > 1:
             gcfg = dataclasses.replace(gcfg, solve_bucket_step=0, edge_bucket_step=0)
-        g = gn.optimize(states.graph, gcfg, enable=_enable(closed_now, dev))
+        with stage("slam.closure_gn"):
+            g = gn.optimize(states.graph, gcfg, enable=_enable(closed_now, dev))
         states = dataclasses.replace(states, graph=g)
         kc_t = torch.tensor([min(max(k, 0), Tp - 1) for k in kc_global], device=dev)[:, None]
         pose_kc = _rows_at(pose_seq, kc_t)
@@ -946,26 +949,27 @@ def blocked_core_batched(states: SlamState, obs_seq, valid_seq, pose_seq, cfg: S
     for ib in range(lo_block, nb):
         if not any(loc):
             break
-        f = slice(ib * B, (ib + 1) * B)
-        active = torch.tensor(loc, device=dev)
-        okp = okp_all[:, f] & (ib * B + fidx > kc_dev[:, None]) & active[:, None]
-        ns, outs, aux = _loc_block(states, obs_c[:, f], valid_c[:, f], pose_seq[:, f], okp,
-                                   overflow[:, f], cfg, assoc_mesh)
-        fires = _periodic_fires(states.keyframe_count, okp,
-                                ns.graph.n_landmarks[:, None].expand(S, B),
-                                cfg) if periodic else None
-        (fb,), fires = _read_flags((aux["fallback"],), fires)
-        fell = [loc[s] and bool(fb[s]) for s in range(S)]
-        if periodic:
-            pfb, ns, outs = _loc_periodic(
-                states, ns, outs, aux, fires, [loc[s] and not fell[s] for s in range(S)], okp,
-                cfg)
-            fell = [fell[s] or pfb[s] for s in range(S)]
-        states = _hold(fell, ns, states)
-        for s in range(S):
-            if fell[s]:
-                done_upto[s], loc[s] = ib * B, False
-        loc_parts.append(outs)
+        with stage("slam.loc_block"):
+            f = slice(ib * B, (ib + 1) * B)
+            active = torch.tensor(loc, device=dev)
+            okp = okp_all[:, f] & (ib * B + fidx > kc_dev[:, None]) & active[:, None]
+            ns, outs, aux = _loc_block(states, obs_c[:, f], valid_c[:, f], pose_seq[:, f], okp,
+                                       overflow[:, f], cfg, assoc_mesh)
+            fires = _periodic_fires(states.keyframe_count, okp,
+                                    ns.graph.n_landmarks[:, None].expand(S, B),
+                                    cfg) if periodic else None
+            (fb,), fires = _read_flags((aux["fallback"],), fires)
+            fell = [loc[s] and bool(fb[s]) for s in range(S)]
+            if periodic:
+                pfb, ns, outs = _loc_periodic(
+                    states, ns, outs, aux, fires, [loc[s] and not fell[s] for s in range(S)], okp,
+                    cfg)
+                fell = [fell[s] or pfb[s] for s in range(S)]
+            states = _hold(fell, ns, states)
+            for s in range(S):
+                if fell[s]:
+                    done_upto[s], loc[s] = ib * B, False
+            loc_parts.append(outs)
 
     # merge: frames up to each closure frame from the mapping blocks, later
     # ones from the localization blocks; the closure frame's packet patched
@@ -1080,8 +1084,11 @@ def run_sequences_blocked_batched(states: SlamState, obs_seq, valid_seq, pose_se
     if T == 0 or cfg.capacity.max_obs < block * min(obs_seq.shape[2], 32) + 1:
         # an edge capacity below one block's rows: the per-frame path is the
         # whole pass, session by session
-        runs = [run_sequence(session_state(states, s), obs_seq[s], valid_seq[s], pose_seq[s],
-                             cfg) for s in range(S)]
+        runs = []
+        for s in range(S):
+            with stage("slam.per_frame"):
+                runs.append(run_sequence(session_state(states, s), obs_seq[s], valid_seq[s],
+                                         pose_seq[s], cfg))
         return (stack_states([r[0] for r in runs]),
                 _map_outputs(lambda *vs: torch.stack(vs), *(r[1] for r in runs)))
     obs_p, valid_p, pose_p = _pad_inputs(obs_seq, valid_seq, pose_seq, cfg, block)
@@ -1096,7 +1103,9 @@ def run_sequences_blocked_batched(states: SlamState, obs_seq, valid_seq, pose_se
         st, out = session_state(states, s), _take(outs, s)
         d = done_upto[s]
         if d < T:
-            st, rest = run_sequence(st, obs_seq[s, d:], valid_seq[s, d:], pose_seq[s, d:], cfg)
+            with stage("slam.per_frame"):
+                st, rest = run_sequence(st, obs_seq[s, d:], valid_seq[s, d:], pose_seq[s, d:],
+                                        cfg)
             out = _cat([_rows(out, 0, d), rest])
         per_state.append(st)
         per_outs.append(out)

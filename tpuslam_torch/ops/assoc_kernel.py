@@ -19,6 +19,7 @@ import functools
 import torch
 
 from tpuslam_torch import _build
+from tpuslam_torch.runtime.tracing import stage
 
 __all__ = ["associate_kernel", "associate_plain", "launches"]
 
@@ -123,49 +124,50 @@ def associate_kernel(obs_xy, obs_type, lm_xy, lm_type, gate2,
     [S,N], and `lm_count` [S]), and one launch covers them all.
     """
     global launches
-    if mahalanobis and lm_cov_inv_packed is None:
-        raise ValueError("mahalanobis needs lm_cov_inv_packed")
-    if not obs_xy.is_cuda:
-        return associate_plain(obs_xy, obs_type, lm_xy, lm_type, gate2,
-                               lm_cov_inv_packed, mahalanobis, obs_valid, lm_count)
-    lead = tuple(obs_xy.shape[:-2])
-    if len(lead) > 1:
-        raise ValueError(f"obs_xy: want [N, 2] or [S, N, 2], got {tuple(obs_xy.shape)}")
-    s, n, m = (lead[0] if lead else 1), obs_xy.shape[-2], lm_xy.shape[-2]
-    dev = obs_xy.get_device()
-    _bad("obs_xy", obs_xy, torch.float32, (*lead, n, 2), dev)
-    float_type = obs_type.dtype == torch.float32
-    _bad("obs_type", obs_type, torch.float32 if float_type else torch.int32, (*lead, n), dev,
-         contiguous=not float_type)
-    _bad("lm_xy", lm_xy, torch.float32, (*lead, m, 2), dev)
-    _bad("lm_type", lm_type, torch.int32, (*lead, m), dev)
-    cov = 0
-    if mahalanobis:
-        _bad("lm_cov_inv_packed", lm_cov_inv_packed, torch.float32, (*lead, m, 3), dev)
-        cov = lm_cov_inv_packed.data_ptr()
-    valid = count = 0
-    if obs_valid is not None:
-        _bad("obs_valid", obs_valid, torch.bool, (*lead, n), dev)
-        valid = obs_valid.data_ptr()
-    if lm_count is not None:
-        _bad("lm_count", lm_count, torch.int32, lead, dev)
-        count = lm_count.data_ptr()
-    if obs_xy.data_ptr() % 8 or lm_xy.data_ptr() % 8:
-        raise ValueError("obs_xy and lm_xy must be 8-byte aligned (read as float2)")
-    idx = torch.empty((*lead, n), dtype=torch.int32, device=obs_xy.device)
-    cost = torch.empty((*lead, n), dtype=torch.float32, device=obs_xy.device)
-    matched = torch.empty((*lead, n), dtype=torch.bool, device=obs_xy.device)
-    if n == 0 or s == 0:
+    with stage("slam.assoc"):
+        if mahalanobis and lm_cov_inv_packed is None:
+            raise ValueError("mahalanobis needs lm_cov_inv_packed")
+        if not obs_xy.is_cuda:
+            return associate_plain(obs_xy, obs_type, lm_xy, lm_type, gate2,
+                                   lm_cov_inv_packed, mahalanobis, obs_valid, lm_count)
+        lead = tuple(obs_xy.shape[:-2])
+        if len(lead) > 1:
+            raise ValueError(f"obs_xy: want [N, 2] or [S, N, 2], got {tuple(obs_xy.shape)}")
+        s, n, m = (lead[0] if lead else 1), obs_xy.shape[-2], lm_xy.shape[-2]
+        dev = obs_xy.get_device()
+        _bad("obs_xy", obs_xy, torch.float32, (*lead, n, 2), dev)
+        float_type = obs_type.dtype == torch.float32
+        _bad("obs_type", obs_type, torch.float32 if float_type else torch.int32, (*lead, n), dev,
+             contiguous=not float_type)
+        _bad("lm_xy", lm_xy, torch.float32, (*lead, m, 2), dev)
+        _bad("lm_type", lm_type, torch.int32, (*lead, m), dev)
+        cov = 0
+        if mahalanobis:
+            _bad("lm_cov_inv_packed", lm_cov_inv_packed, torch.float32, (*lead, m, 3), dev)
+            cov = lm_cov_inv_packed.data_ptr()
+        valid = count = 0
+        if obs_valid is not None:
+            _bad("obs_valid", obs_valid, torch.bool, (*lead, n), dev)
+            valid = obs_valid.data_ptr()
+        if lm_count is not None:
+            _bad("lm_count", lm_count, torch.int32, lead, dev)
+            count = lm_count.data_ptr()
+        if obs_xy.data_ptr() % 8 or lm_xy.data_ptr() % 8:
+            raise ValueError("obs_xy and lm_xy must be 8-byte aligned (read as float2)")
+        idx = torch.empty((*lead, n), dtype=torch.int32, device=obs_xy.device)
+        cost = torch.empty((*lead, n), dtype=torch.float32, device=obs_xy.device)
+        matched = torch.empty((*lead, n), dtype=torch.bool, device=obs_xy.device)
+        if n == 0 or s == 0:
+            return idx, matched, cost
+        if _entry is None:
+            _load()
+        csize = _plan(n, m, _sms(dev), s)
+        sstride = obs_type.stride(0) if lead else 0
+        err = _entry(obs_xy.data_ptr(), obs_type.data_ptr(), obs_type.stride(-1), sstride,
+                     int(float_type), valid, lm_xy.data_ptr(), lm_type.data_ptr(), cov, count,
+                     s, n, m, gate2, int(mahalanobis), csize, idx.data_ptr(), cost.data_ptr(),
+                     matched.data_ptr(), torch.cuda.current_stream(dev).cuda_stream)
+        if err:
+            _build.check(_build.load("assoc", {}), "assoc", err)
+        launches += 1
         return idx, matched, cost
-    if _entry is None:
-        _load()
-    csize = _plan(n, m, _sms(dev), s)
-    sstride = obs_type.stride(0) if lead else 0
-    err = _entry(obs_xy.data_ptr(), obs_type.data_ptr(), obs_type.stride(-1), sstride,
-                 int(float_type), valid, lm_xy.data_ptr(), lm_type.data_ptr(), cov, count,
-                 s, n, m, gate2, int(mahalanobis), csize, idx.data_ptr(), cost.data_ptr(),
-                 matched.data_ptr(), torch.cuda.current_stream(dev).cuda_stream)
-    if err:
-        _build.check(_build.load("assoc", {}), "assoc", err)
-    launches += 1
-    return idx, matched, cost

@@ -38,6 +38,7 @@ from tpuslam_torch.backend import gauss_newton as gn
 from tpuslam_torch.backend.graph import FactorGraph, GraphCapacity, empty_graph
 from tpuslam_torch.parallel.collectives import all_gather, shard
 from tpuslam_torch.parallel.distributed import distributed_optimize
+from tpuslam_torch.runtime.tracing import stage
 
 __all__ = ["estimate_se2", "transform_graph", "align_to_anchor", "align_consensus_round",
            "dedup_labels", "fuse_graphs", "fuse_sessions", "fusion_report"]
@@ -283,83 +284,85 @@ def fuse_graphs(stacked: FactorGraph, gate: float = 1.2, mesh=None, axis: str = 
     all_xy = stacked.lm_xy.reshape(sl, 2)
     all_type = stacked.lm_type.reshape(sl)
     lm_valid = _lm_valid(stacked).reshape(sl)
-    labels = dedup_labels(all_xy, all_type, lm_valid, gate, mesh=mesh, axis=axis,
-                          iters=dedup_iters)
-    k = torch.arange(sl, device=dev)
-    is_root = (lm_valid & (labels == k)).to(_I32)
-    root_rank = torch.cumsum(is_root, 0, dtype=_I32) - is_root
-    n_merged = torch.sum(is_root, dtype=_I32)
-    # each landmark's slot in the merged map is its root's rank; invalid
-    # ones are dropped
-    remap = torch.where(lm_valid, root_rank[torch.clamp(labels, 0, sl - 1).long()], sl)
-    to = remap.long()
+    with stage("slam.fusion.dedup"):
+        labels = dedup_labels(all_xy, all_type, lm_valid, gate, mesh=mesh, axis=axis,
+                              iters=dedup_iters)
+    with stage("slam.fusion.merge"):
+        k = torch.arange(sl, device=dev)
+        is_root = (lm_valid & (labels == k)).to(_I32)
+        root_rank = torch.cumsum(is_root, 0, dtype=_I32) - is_root
+        n_merged = torch.sum(is_root, dtype=_I32)
+        # each landmark's slot in the merged map is its root's rank; invalid
+        # ones are dropped
+        remap = torch.where(lm_valid, root_rank[torch.clamp(labels, 0, sl - 1).long()], sl)
+        to = remap.long()
 
-    # merged landmark positions
-    w_obs = _session_obs_counts(stacked).reshape(sl)
-    w_eff = torch.where(lm_valid, torch.clamp(w_obs, min=1.0), 0.0)
-    if lm_info is not None:
-        info = lm_info.reshape(sl, 3)
-        has = (info[:, 0] + info[:, 2]) > 0.0
-        has_f = (has & lm_valid).to(dtype)
-        tot_info = torch.sum(0.5 * (info[:, 0] + info[:, 2]) * has_f)
-        tot_obs = torch.sum(w_eff * has_f)
-        nominal = torch.where(tot_obs > 0.0, tot_info / torch.clamp(tot_obs, min=1.0), 1.0)
-        a = torch.where(has, info[:, 0], nominal * w_eff)
-        b = torch.where(has, info[:, 1], 0.0)
-        c = torch.where(has, info[:, 2], nominal * w_eff)
-        lam_x = a * all_xy[:, 0] + b * all_xy[:, 1]
-        lam_y = b * all_xy[:, 0] + c * all_xy[:, 1]
-        msk = lm_valid.to(dtype)
-        sa, sb, sc, sx, sy = (_scatter(sl, to, v * msk) for v in (a, b, c, lam_x, lam_y))
-        det = torch.clamp(sa * sc - sb * sb, min=1e-12)
-        merged_xy = torch.stack([(sc * sx - sb * sy) / det, (sa * sy - sb * sx) / det], dim=-1)
-    else:
-        sum_xy = _scatter(sl, to, w_eff[:, None] * all_xy)
-        sum_w = _scatter(sl, to, w_eff)
-        merged_xy = sum_xy / torch.clamp(sum_w, min=1e-9)[:, None]
-    type_src = _scatter(sl, to, torch.where(lm_valid, all_type, 0), "amax")
+        # merged landmark positions
+        w_obs = _session_obs_counts(stacked).reshape(sl)
+        w_eff = torch.where(lm_valid, torch.clamp(w_obs, min=1.0), 0.0)
+        if lm_info is not None:
+            info = lm_info.reshape(sl, 3)
+            has = (info[:, 0] + info[:, 2]) > 0.0
+            has_f = (has & lm_valid).to(dtype)
+            tot_info = torch.sum(0.5 * (info[:, 0] + info[:, 2]) * has_f)
+            tot_obs = torch.sum(w_eff * has_f)
+            nominal = torch.where(tot_obs > 0.0, tot_info / torch.clamp(tot_obs, min=1.0), 1.0)
+            a = torch.where(has, info[:, 0], nominal * w_eff)
+            b = torch.where(has, info[:, 1], 0.0)
+            c = torch.where(has, info[:, 2], nominal * w_eff)
+            lam_x = a * all_xy[:, 0] + b * all_xy[:, 1]
+            lam_y = b * all_xy[:, 0] + c * all_xy[:, 1]
+            msk = lm_valid.to(dtype)
+            sa, sb, sc, sx, sy = (_scatter(sl, to, v * msk) for v in (a, b, c, lam_x, lam_y))
+            det = torch.clamp(sa * sc - sb * sb, min=1e-12)
+            merged_xy = torch.stack([(sc * sx - sb * sy) / det, (sa * sy - sb * sx) / det], dim=-1)
+        else:
+            sum_xy = _scatter(sl, to, w_eff[:, None] * all_xy)
+            sum_w = _scatter(sl, to, w_eff)
+            merged_xy = sum_xy / torch.clamp(sum_w, min=1e-9)[:, None]
+        type_src = _scatter(sl, to, torch.where(lm_valid, all_type, 0), "amax")
 
-    # cross-session merges (a diagnostic): components with members from at
-    # least two sessions
-    sess_of = (k // l_cap).to(_I32)
-    first_sess = _scatter(sl, to, torch.where(lm_valid, sess_of, s), "amin", init=s)
-    last_sess = _scatter(sl, to, torch.where(lm_valid, sess_of, -1), "amax", init=-1)
-    cross = torch.sum((k < n_merged) & (last_sess > first_sess), dtype=_I32)
+        # cross-session merges (a diagnostic): components with members from at
+        # least two sessions
+        sess_of = (k // l_cap).to(_I32)
+        first_sess = _scatter(sl, to, torch.where(lm_valid, sess_of, s), "amin", init=s)
+        last_sess = _scatter(sl, to, torch.where(lm_valid, sess_of, -1), "amax", init=-1)
+        cross = torch.sum((k < n_merged) & (last_sess > first_sess), dtype=_I32)
 
-    # pose chains: sessions back to back, each chain severed at its first pose
-    pose_offset = _offsets(stacked.n_poses)
-    kp = torch.arange(p_cap, device=dev)[None, :]
-    pose_ok = kp < stacked.n_poses[:, None]
-    pose_to = torch.where(pose_ok, pose_offset[:, None] + kp, sp).reshape(sp).long()
-    is_first = (kp == 0) & pose_ok
-    fused = empty_graph(GraphCapacity(sp, sl, se), dev, dtype)
-    fused = dataclasses.replace(
-        fused,
-        poses=_set_drop(fused.poses, pose_to, stacked.poses.reshape(sp, 3)),
-        odo_meas=_set_drop(fused.odo_meas, pose_to, stacked.odo_meas.reshape(sp, 3)),
-        odo_w=_set_drop(fused.odo_w, pose_to,
-                        torch.where(is_first, 0.0, stacked.odo_w).reshape(sp)),
-        prior_pose=_set_drop(fused.prior_pose, pose_to, stacked.prior_pose.reshape(sp, 3)),
-        prior_info=_set_drop(fused.prior_info, pose_to, stacked.prior_info.reshape(sp, 2)),
-        n_poses=torch.sum(stacked.n_poses, dtype=_I32),
-        lm_xy=merged_xy, lm_type=type_src, n_landmarks=n_merged)
+        # pose chains: sessions back to back, each chain severed at its first pose
+        pose_offset = _offsets(stacked.n_poses)
+        kp = torch.arange(p_cap, device=dev)[None, :]
+        pose_ok = kp < stacked.n_poses[:, None]
+        pose_to = torch.where(pose_ok, pose_offset[:, None] + kp, sp).reshape(sp).long()
+        is_first = (kp == 0) & pose_ok
+        fused = empty_graph(GraphCapacity(sp, sl, se), dev, dtype)
+        fused = dataclasses.replace(
+            fused,
+            poses=_set_drop(fused.poses, pose_to, stacked.poses.reshape(sp, 3)),
+            odo_meas=_set_drop(fused.odo_meas, pose_to, stacked.odo_meas.reshape(sp, 3)),
+            odo_w=_set_drop(fused.odo_w, pose_to,
+                            torch.where(is_first, 0.0, stacked.odo_w).reshape(sp)),
+            prior_pose=_set_drop(fused.prior_pose, pose_to, stacked.prior_pose.reshape(sp, 3)),
+            prior_info=_set_drop(fused.prior_info, pose_to, stacked.prior_info.reshape(sp, 2)),
+            n_poses=torch.sum(stacked.n_poses, dtype=_I32),
+            lm_xy=merged_xy, lm_type=type_src, n_landmarks=n_merged)
 
-    # observation edges: compacted, their pose and landmark indices remapped
-    edge_offset = _offsets(stacked.n_obs)
-    ke = torch.arange(e_cap, device=dev)[None, :]
-    edge_to = torch.where(ke < stacked.n_obs[:, None], edge_offset[:, None] + ke,
-                          se).reshape(se).long()
-    obs_pose_g = (pose_offset[:, None] + stacked.obs_pose).reshape(se)
-    lm_local = (torch.arange(s, device=dev)[:, None] * l_cap + stacked.obs_lm).reshape(se)
-    obs_lm_g = remap[torch.clamp(lm_local, 0, sl - 1).long()]
-    fused = dataclasses.replace(
-        fused,
-        obs_pose=_set_drop(fused.obs_pose, edge_to, obs_pose_g),
-        obs_lm=_set_drop(fused.obs_lm, edge_to, torch.clamp(obs_lm_g, 0, sl - 1)),
-        obs_xy=_set_drop(fused.obs_xy, edge_to, stacked.obs_xy.reshape(se, 2)),
-        n_obs=torch.sum(stacked.n_obs, dtype=_I32))
-    return fused, dict(n_merged_landmarks=n_merged, n_cross_session_merges=cross,
-                       labels=labels)
+        # observation edges: compacted, their pose and landmark indices remapped
+        edge_offset = _offsets(stacked.n_obs)
+        ke = torch.arange(e_cap, device=dev)[None, :]
+        edge_to = torch.where(ke < stacked.n_obs[:, None], edge_offset[:, None] + ke,
+                              se).reshape(se).long()
+        obs_pose_g = (pose_offset[:, None] + stacked.obs_pose).reshape(se)
+        lm_local = (torch.arange(s, device=dev)[:, None] * l_cap + stacked.obs_lm).reshape(se)
+        obs_lm_g = remap[torch.clamp(lm_local, 0, sl - 1).long()]
+        fused = dataclasses.replace(
+            fused,
+            obs_pose=_set_drop(fused.obs_pose, edge_to, obs_pose_g),
+            obs_lm=_set_drop(fused.obs_lm, edge_to, torch.clamp(obs_lm_g, 0, sl - 1)),
+            obs_xy=_set_drop(fused.obs_xy, edge_to, stacked.obs_xy.reshape(se, 2)),
+            n_obs=torch.sum(stacked.n_obs, dtype=_I32))
+        return fused, dict(n_merged_landmarks=n_merged, n_cross_session_merges=cross,
+                           labels=labels)
 
 
 def fusion_report(report) -> dict:
@@ -420,14 +423,17 @@ def fuse_sessions(stacked: FactorGraph, cfg: gn.GNConfig | None = None, gate: fl
     fused, report = fuse_graphs(stacked, gate, mesh=mesh, dedup_iters=dedup_iters,
                                 lm_info=lm_info)
     report = dict(report, tforms=tforms, n_align_matched=n_matched, solver=solver)
-    if cfg is not None and solver != "auto":
-        from tpuslam_torch.parallel.chain import chain_optimize
-        if solve_mesh is None:
-            from tpuslam_torch.parallel.mesh import make_chain_mesh
-            solve_mesh = make_chain_mesh(device_type=fused.poses.device.type)
-        fused = chain_optimize(fused, cfg, solve_mesh, solver=solver, tray=tray)
-    elif cfg is not None and mesh is not None:
-        fused = distributed_optimize(fused, cfg, mesh)
-    elif cfg is not None:
-        fused = gn.optimize(fused, cfg)
+    if cfg is None:
+        return fused, report
+    with stage("slam.fusion.gn"):
+        if solver != "auto":
+            from tpuslam_torch.parallel.chain import chain_optimize
+            if solve_mesh is None:
+                from tpuslam_torch.parallel.mesh import make_chain_mesh
+                solve_mesh = make_chain_mesh(device_type=fused.poses.device.type)
+            fused = chain_optimize(fused, cfg, solve_mesh, solver=solver, tray=tray)
+        elif mesh is not None:
+            fused = distributed_optimize(fused, cfg, mesh)
+        else:
+            fused = gn.optimize(fused, cfg)
     return fused, report

@@ -1,10 +1,11 @@
-"""Metrics registry + structured event log: a copy of
-`tpuslam.runtime.metrics` (pure Python).
+"""Metrics registry: the counters, gauges and timers of
+`tpuslam.runtime.metrics` (pure Python), which the service and
+`slamctl-torch` read.
 
 The reference's observability is raw std::cout prints in the hot path plus
 g2o's verbose chi2 dump (SURVEY.md §5.1/§5.5). Here: named counters, gauges,
-and timers with JSON/CSV export, and an event log for structured tracing
-(keyframes, closures, optimizations).
+and timers with a JSON export. The stages of a pass are `runtime.tracing`
+spans, read from the profiler's trace.
 """
 from __future__ import annotations
 
@@ -13,7 +14,7 @@ import time
 from collections import defaultdict
 from contextlib import contextmanager
 from dataclasses import dataclass, field
-from typing import Optional, TextIO
+from typing import TextIO
 
 
 @dataclass
@@ -37,8 +38,6 @@ class MetricsRegistry:
     counters: dict = field(default_factory=lambda: defaultdict(int))
     gauges: dict = field(default_factory=dict)
     timers: dict = field(default_factory=lambda: defaultdict(TimerStat))
-    events: list = field(default_factory=list)
-    max_events: int = 100_000
 
     def inc(self, name: str, by: int = 1):
         self.counters[name] += by
@@ -54,11 +53,6 @@ class MetricsRegistry:
         finally:
             self.timers[name].add(time.perf_counter() - t0)
 
-    def event(self, kind: str, **payload):
-        if len(self.events) < self.max_events:
-            self.events.append({"t_us": time.time_ns() // 1000,
-                                "kind": kind, **payload})
-
     # ------------------------------------------------------------- export
     def snapshot(self) -> dict:
         return {
@@ -72,16 +66,3 @@ class MetricsRegistry:
     def dump_json(self, out: TextIO):
         json.dump(self.snapshot(), out, indent=2, default=str)
         out.write("\n")
-
-    def dump_events_jsonl(self, out: TextIO):
-        for e in self.events:
-            out.write(json.dumps(e, default=str) + "\n")
-
-    def dump_csv(self, out: TextIO):
-        out.write("metric;kind;value\n")
-        for k, v in sorted(self.counters.items()):
-            out.write(f"{k};counter;{v}\n")
-        for k, v in sorted(self.gauges.items()):
-            out.write(f"{k};gauge;{v}\n")
-        for k, v in sorted(self.timers.items()):
-            out.write(f"{k};timer_mean_s;{v.mean_s}\n")

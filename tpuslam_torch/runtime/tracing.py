@@ -9,23 +9,33 @@ Replaces the reference's printf-observability (SURVEY.md §5.1). Usage:
 
 `trace_session` records host activity, and the card's kernels and copies
 when a CUDA device is present, and writes one Chrome-trace JSON file into
-`logdir` that Perfetto (ui.perfetto.dev) opens. `stage` also works
-standalone as a lightweight host annotation when no trace session is
-active. Nothing here depends on the device events arriving: the profiler
-has been seen to drop kernel events after long profiles, so a trace may
-hold fewer of them than ran.
+`logdir` that Perfetto (ui.perfetto.dev) opens. Nothing here depends on the
+device events arriving: the profiler has been seen to drop kernel events
+after long profiles, so a trace may hold fewer of them than ran.
+
+The program's own stages are `stage` spans named `slam.*`: the blocked
+pipeline's `slam.mapping_block`, `slam.loc_block`, `slam.closure_gn` and
+`slam.per_frame` (`frontend/blocked.py`), `slam.assoc`
+(`ops/assoc_kernel.py`), `slam.gn.iteration` (`backend/gauss_newton.py`),
+and the fusion's `slam.fusion.dedup`, `slam.fusion.merge` and
+`slam.fusion.gn` (`parallel/fusion.py`). Under a profiler each is a
+`user_annotation` event on the host thread, on the clock of the device
+events; without one a span costs one check of the profiler's flag.
 """
 from __future__ import annotations
 
-import functools
+import contextlib
 import os
 import time
 from contextlib import contextmanager
 
 import torch
+from torch.autograd import _profiler_enabled
 from torch.profiler import ProfilerActivity, profile, record_function
 
-__all__ = ["trace_session", "stage", "annotate_fn"]
+__all__ = ["trace_session", "stage"]
+
+_OFF = contextlib.nullcontext()
 
 
 @contextmanager
@@ -43,19 +53,10 @@ def trace_session(logdir: str):
     prof.export_chrome_trace(os.path.join(logdir, f"trace-{os.getpid()}-{time.time_ns()}.json"))
 
 
-@contextmanager
 def stage(name: str):
-    """Named region visible in profiler timelines (record_function)."""
-    with record_function(name):
-        yield
-
-
-def annotate_fn(name: str):
-    """Decorator: annotate a function as a named profiler region."""
-    def deco(fn):
-        @functools.wraps(fn)
-        def wrapped(*a, **kw):
-            with record_function(name):
-                return fn(*a, **kw)
-        return wrapped
-    return deco
+    """Named region for profiler timelines: a `record_function` while a
+    profiler records, else a shared no-op context (no span, no tensor, no
+    device read or synchronization either way)."""
+    if not _profiler_enabled():
+        return _OFF
+    return record_function(name)
