@@ -235,6 +235,40 @@ def test_blocked_rejects_unsupported_config():
             torch.distributed.destroy_process_group()
 
 
+@pytest.mark.parametrize("case", ["cpu", "cpu_batched", "assoc_mesh"])
+def test_blocks_stay_eager_off_the_card_and_with_a_mesh(case):
+    """The blocks replay CUDA graphs only for CUDA tensors without a mesh:
+    on the CPU (one session, or a batch of them) and with an `assoc_mesh`
+    they run eagerly, as before, and capture and replay nothing."""
+    from tpuslam_torch.parallel.batch import initial_states
+    frames = _sim(skidpad, 3, laps=1.0)
+    ins = _tensors(frames)
+    cap = GraphCapacity(_pose_cap(len(frames[0])), 256, 8192)
+    cfg = SlamConfig(capacity=cap, association="nearest", use_pallas_association=True,
+                     localizer_type_bug=False)
+    mesh, made = None, False
+    if case == "assoc_mesh":
+        from tpuslam_torch.parallel.mesh import initialize_distributed, make_slam_mesh
+        made = initialize_distributed("gloo")
+    try:
+        if case == "assoc_mesh":
+            mesh = make_slam_mesh(1, 1, device_type="cpu")
+        assert not blocked._use_graphs(ins[0], mesh)
+        if case == "cpu_batched":
+            st, _ = blocked.run_sequences_blocked_batched(
+                initial_states(cap, 2, "cpu"), *(torch.stack([x, x]) for x in ins), cfg, block=8)
+            closed = bool(st.loop_closure_complete.all())
+        else:
+            st, _ = run_sequence_blocked(initial_state(cap, "cpu"), *ins, cfg, block=8,
+                                         assoc_mesh=mesh)
+            closed = bool(st.loop_closure_complete)
+    finally:
+        if made:        # the next test file in this worker gets no world
+            torch.distributed.destroy_process_group()
+    assert closed
+    assert blocked.graph_captures == 0 and blocked.graph_replays == 0 and not blocked._graphs
+
+
 def test_blocked_zero_frames_equals_run_sequence():
     cfg = SlamConfig(capacity=GraphCapacity(64, 64, 1024))
     ins = (torch.zeros(0, 64, 4), torch.zeros(0, 64, dtype=torch.bool), torch.zeros(0, 3))

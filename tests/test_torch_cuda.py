@@ -6,12 +6,17 @@ runs. They skip without a device. The GPU machine has no JAX, so this
 file imports none; run it there with
 `python -m pytest --noconftest -m cuda tests/test_torch_cuda.py`
 (the suite's conftest imports JAX)."""
+import functools
+import json
+from pathlib import Path
+
 import numpy as np
 import pytest
 import torch
 
 import chip_smoke
 from tpuslam_torch.backend.graph import GraphCapacity
+from tpuslam_torch.frontend import blocked
 from tpuslam_torch.frontend.blocked import run_pass_blocked, run_sequences_blocked_batched
 from tpuslam_torch.frontend.pipeline import run_pass
 from tpuslam_torch.ops import assoc_kernel as A
@@ -19,7 +24,7 @@ from tpuslam_torch.ops import cholesky as C
 from tpuslam_torch.parallel import fusion
 from tpuslam_torch.parallel.batch import initial_states
 from tpuslam_torch.runtime.config import SlamConfig
-from tpuslam_torch.sim import SimConfig, simulate, skidpad
+from tpuslam_torch.sim import SimConfig, simulate, skidpad, trackdrive
 
 pytestmark = pytest.mark.cuda
 
@@ -583,3 +588,174 @@ def test_world_of_one_mesh_paths_on_cuda(cuda, nccl_mesh):
                                           gate=1.2)
     assert torch.equal(rep["labels"], rep_w["labels"])
     np.testing.assert_allclose(fused.lm_xy.cpu().numpy(), fused_w.lm_xy.cpu().numpy(), atol=1e-3)
+
+
+# -- the blocks' CUDA graphs (frontend/blocked.py `_run_block`) against the eager blocks --
+
+FLEET_SLAM = json.loads((Path(__file__).resolve().parents[1] / "slambench" / "configs"
+                         / "trackdrive_nearest.json").read_text())["slam"]
+
+
+@functools.lru_cache(maxsize=None)
+def _fleet_scenarios(sessions: int, first_seed: int):
+    """Trackdrive sessions as the replay benchmark's fleet makes them (1.4
+    laps at 8 m/s, a keyframe each 0.1 s, range 20 m), one noise seed each."""
+    return [simulate(trackdrive(seed=11), SimConfig(laps=1.4, keyframe_dt=0.1, speed=8.0,
+                                                    max_range=20.0, seed=first_seed + s))
+            for s in range(sessions)]
+
+
+def _fleet_inputs(device, sessions: int, first_seed: int = 0, cut: int | None = None):
+    """(obs, valid, poses) [S, T, ...] of `_fleet_scenarios`; with `cut`, every
+    session but the first has its frames from `cut` on past the GPS guard
+    (no-ops), so only the first inserts poses up to the end."""
+    scens = _fleet_scenarios(sessions, first_seed)
+    t = min(len(sc.times) for sc in scens)
+    obs, valid, poses = (torch.tensor(np.stack([getattr(sc, f)[:t] for sc in scens]),
+                                      device=device)
+                         for f in ("obs", "obs_valid", "odom_poses"))
+    obs, poses = obs.float(), poses.float()
+    if cut is not None:
+        poses[1:, cut:] = 2.0 * FLEET_SLAM["gps_outlier_bound"] + 1.0
+    return obs, valid, poses
+
+
+def _core(states, obs, valid, poses, cfg, block):
+    """`blocked_core_batched` as `run_sequences_blocked_batched` calls it."""
+    obs, valid, poses = blocked._pad_inputs(obs, valid, poses, cfg, block)
+    nc, frozen = blocked._pick_compact(valid, states)
+    return blocked.blocked_core_batched(states, obs, valid, poses, cfg, block, compact_obs=nc,
+                                        frozen=frozen)
+
+
+def _eager(monkeypatch, fn):
+    """`fn()` with the blocks run eagerly."""
+    with monkeypatch.context() as m:
+        m.setattr(blocked, "_use_graphs", lambda x, mesh: False)
+        return fn()
+
+
+@pytest.fixture
+def deterministic(monkeypatch):
+    """torch's deterministic algorithms, so that the GNs' `index_add_` sums
+    add in a fixed order (on the card they are atomics otherwise, and a
+    value after a GN may differ in its last bits from one run to the next),
+    and the graphs captured anew under them."""
+    monkeypatch.setattr(blocked, "_graphs", {})
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    yield
+    torch.use_deterministic_algorithms(False)
+
+
+def _assert_graph_equals_eager(got, eager, eager_again, atol):
+    """A graph run's results against two eager runs, tensor by tensor: bit
+    for bit wherever the two eager runs agree bit for bit. A tensor in
+    which they differ even so is not deterministic eagerly: there a float
+    is held within `atol` of the first eager run and an integer or flag to
+    one of the two."""
+    trio = [blocked._tensors(x) for x in (got, eager, eager_again)]
+    assert len({len(x) for x in trio}) == 1
+    for i, (g, a, b) in enumerate(zip(*trio)):
+        g, a, b = g.cpu(), a.cpu(), b.cpu()
+        assert g.shape == a.shape and g.dtype == a.dtype, i
+        off = (g != a) & ~((g != g) & (a != a))
+        what = f"tensor {i} {tuple(g.shape)}: {int(off.sum())} elements differ"
+        if g.is_floating_point() and bool(off.any()):
+            what += f" by up to {float((g - a).abs()[off].max())}"
+        if bool(((a == b) | ((a != a) & (b != b))).all()):
+            assert not bool(off.any()), what
+        elif g.is_floating_point():
+            torch.testing.assert_close(g, a, rtol=0, atol=atol, equal_nan=True, msg=what)
+        else:
+            assert bool(((g == a) | (g == b)).all()), what
+
+
+def test_block_graphs_equal_eager_fleet_with_a_fallback(cuda, deterministic, monkeypatch):
+    """The fleet configuration at S = 8 with a pose capacity that only the
+    first session outgrows: it falls back in a localization block and keeps
+    its state from before that block (`_hold`), the others run on. The
+    graphs give the eager blocks' states, outputs and fallback frames."""
+    cap = GraphCapacity(320, 256, 4096)
+    cfg = SlamConfig(capacity=cap, **FLEET_SLAM)
+    ins = _fleet_inputs(cuda, 8, cut=300)
+
+    def run():
+        return _core(initial_states(cap, 8, cuda), *ins, cfg, 32)
+    eager, eager_again = _eager(monkeypatch, run), _eager(monkeypatch, run)
+    replays = blocked.graph_replays
+    got = run()
+    assert blocked.graph_replays > replays
+    tp = got[1].pose.shape[1]
+    assert got[2][0] < tp and got[2][1:] == [tp] * 7, got[2]
+    assert got[2] == eager[2] == eager_again[2]
+    _assert_graph_equals_eager(got[:2], eager[:2], eager_again[:2], chip_smoke.POSE_ATOL)
+
+
+def test_block_graphs_equal_eager_improved_block16(cuda, deterministic, monkeypatch):
+    """The improved mode (Mahalanobis gating through the kernel, GPS
+    priors, both refines, a fixed-lag periodic GN every 16 keyframes) at
+    block 16: the periodic GNs run eagerly between the replays."""
+    scen = simulate(skidpad(), SimConfig(laps=1.3, keyframe_dt=0.1, speed=8.0, max_range=20.0,
+                                         seed=4))
+    cfg = SlamConfig.improved(capacity=GraphCapacity(256, 128, 4096), **chip_smoke.IMPROVED["I2"])
+    assert cfg.periodic_gn_every == 16
+    ins = chip_smoke.inputs(scen, cuda)
+
+    def run():
+        return run_pass_blocked(*ins, cfg, block=16)
+    eager, eager_again = _eager(monkeypatch, run), _eager(monkeypatch, run)
+    replays = blocked.graph_replays
+    got = run()
+    assert blocked.graph_replays > replays
+    _assert_graph_equals_eager(got, eager, eager_again, chip_smoke.POSE_ATOL)
+
+
+def test_block_graphs_leave_earlier_results_alone(cuda):
+    """Two calls on different inputs of one shape replay the same graphs:
+    what the first call returned does not change under the second."""
+    cfg = SlamConfig(capacity=GraphCapacity(384, 256, 4096), **FLEET_SLAM)
+    first = run_sequences_blocked_batched(initial_states(cfg.capacity, 4, cuda),
+                                          *_fleet_inputs(cuda, 4, 0), cfg, block=32)
+    kept = blocked._fresh(first)
+    replays = blocked.graph_replays
+    second = run_sequences_blocked_batched(initial_states(cfg.capacity, 4, cuda),
+                                           *_fleet_inputs(cuda, 4, 10), cfg, block=32)
+    assert blocked.graph_replays > replays
+    for a, b in zip(blocked._tensors(first), blocked._tensors(kept)):
+        assert torch.equal(a, b)
+    assert not torch.equal(first[1].pose, second[1].pose)
+
+
+def test_block_graphs_capture_once_per_key_and_replay_per_block(cuda, monkeypatch):
+    """A new key is captured once, in the call that meets it (its mapping
+    and its localization blocks: two keys); each block after that is one
+    replay, as each is one association kernel launch."""
+    monkeypatch.setattr(blocked, "_graphs", {})
+    cfg = SlamConfig(capacity=GraphCapacity(384, 256, 4096), **FLEET_SLAM)
+    for k, seed in enumerate((0, 10)):
+        captures, replays, launches = blocked.graph_captures, blocked.graph_replays, A.launches
+        run_sequences_blocked_batched(initial_states(cfg.capacity, 3, cuda),
+                                      *_fleet_inputs(cuda, 3, seed), cfg, block=32)
+        assert blocked.graph_captures - captures == (2 if k == 0 else 0)
+        blocks = A.launches - launches
+        assert blocks >= 2 and blocked.graph_replays - replays == blocks
+    assert len(blocked._graphs) == 2
+
+
+def test_block_graph_segments_do_not_sync(cuda, monkeypatch):
+    """A replayed block's copies in, its two graphs and the association
+    kernel between them make no host sync."""
+    monkeypatch.setattr(blocked, "_graphs", {})
+    cfg = SlamConfig(capacity=GraphCapacity(384, 256, 4096), **FLEET_SLAM)
+    run_sequences_blocked_batched(initial_states(cfg.capacity, 2, cuda),
+                                  *_fleet_inputs(cuda, 2, 0), cfg, block=32)
+    assert len(blocked._graphs) == 2
+    for bg in blocked._graphs.values():
+        leaves = [t.clone() for t in bg.ins]
+        torch.cuda.synchronize()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            bg.run(leaves)
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+        torch.cuda.synchronize()

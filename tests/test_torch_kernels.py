@@ -185,6 +185,22 @@ def test_associate_plain_batched_equals_single_calls(mahalanobis, masked):
             assert torch.equal(g[i], w)
 
 
+@pytest.mark.parametrize("mahalanobis", [False, True])
+def test_associate_kernel_writes_into_out(mahalanobis):
+    """With `out`, the wrapper writes (idx, matched, cost) into the given
+    tensors and returns them: what a CUDA graph of the blocks reads at fixed
+    addresses. On the CPU it is the twin's result."""
+    oxy, ot, lxy, lt, cov = (torch.stack([w[k] for w in (chip_smoke.assoc_world(
+        61, 300, 5 + i, device="cpu") for i in range(2))]) for k in range(5))
+    gate2 = 9.21 if mahalanobis else 1.44
+    want = A.associate_kernel(oxy, ot, lxy, lt, gate2, cov, mahalanobis=mahalanobis)
+    out = (torch.zeros(2, 61, dtype=torch.int32), torch.zeros(2, 61, dtype=torch.bool),
+           torch.zeros(2, 61))
+    got = A.associate_kernel(oxy, ot, lxy, lt, gate2, cov, mahalanobis=mahalanobis, out=out)
+    assert all(g is o for g, o in zip(got, out)) and int(want[1].sum()) > 0
+    assert all(torch.equal(g, w) for g, w in zip(got, want))
+
+
 @pytest.mark.parametrize("n", [1, 33, 100, 200])
 def test_cholesky_plain_batched_equals_single_calls(n):
     a = torch.stack([torch.tensor(_spd(n + i)[:n, :n]) for i in range(3)])

@@ -33,6 +33,7 @@ batched engine (`parallel.batch`) to run after the frame.
 from __future__ import annotations
 
 import dataclasses
+import functools
 
 import numpy as np
 import torch
@@ -184,6 +185,15 @@ def _associate_shared(state: SlamState, obs, obs_valid, pose, cfg: SlamConfig,
     return glob_all, body_all, cost, gate
 
 
+@functools.lru_cache(maxsize=64)
+def _const(values: tuple, dtype, device):
+    """A small constant tensor, made once per device: a copy from host
+    memory cannot be captured into a CUDA graph, so code that a graph
+    captures (`frontend.blocked`) takes its constants from here, made
+    by the eager run before the capture. Never written to."""
+    return torch.tensor(values, dtype=dtype, device=device)
+
+
 def _mahal_packed(lm_info, cfg: SlamConfig):
     """Packed innovation information, with the scaled-Euclidean cost of a
     landmark that has no information yet: the per-landmark payload the
@@ -191,7 +201,7 @@ def _mahal_packed(lm_info, cfg: SlamConfig):
     fallback = cfg.mahalanobis_gate / cfg.same_cone_threshold ** 2
     has = (lm_info[..., 0] + lm_info[..., 2]) > 0.0
     return torch.where(has[..., None], _innovation_info(lm_info, cfg),
-                       lm_info.new_tensor([fallback, 0.0, fallback]))
+                       _const((fallback, 0.0, fallback), lm_info.dtype, lm_info.device))
 
 
 def _provider_associate(glob, otype, valid, lm_xy, lm_type, n_landmarks, lm_info,
@@ -218,12 +228,25 @@ def _provider_associate(glob, otype, valid, lm_xy, lm_type, n_landmarks, lm_info
                                      lm_cov_inv=cov_inv)
         return associate_sharded(glob, otype, valid, lm_xy, lm_type, lm_valid,
                                  cfg.same_cone_threshold, assoc_mesh, mode=cfg.association)
+    return _launch_assoc(*_assoc_kernel_args(glob, otype, valid, lm_xy, lm_type, n_landmarks,
+                                             lm_info, cfg))
+
+
+def _assoc_kernel_args(glob, otype, valid, lm_xy, lm_type, n_landmarks, lm_info,
+                       cfg: SlamConfig):
+    """The association kernel's (positional, keyword) arguments for
+    `_provider_associate`'s inputs, in `cfg.association`'s gate."""
+    kw = dict(obs_valid=valid, lm_count=n_landmarks)
     if cfg.association == "mahalanobis":
-        return associate_kernel(glob.contiguous(), otype, lm_xy, lm_type, cfg.mahalanobis_gate,
-                                _mahal_packed(lm_info, cfg), mahalanobis=True,
-                                obs_valid=valid, lm_count=n_landmarks)
-    return associate_kernel(glob.contiguous(), otype, lm_xy, lm_type,
-                            cfg.same_cone_threshold ** 2, obs_valid=valid, lm_count=n_landmarks)
+        return ((glob.contiguous(), otype, lm_xy, lm_type, cfg.mahalanobis_gate,
+                 _mahal_packed(lm_info, cfg)), dict(kw, mahalanobis=True))
+    return (glob.contiguous(), otype, lm_xy, lm_type, cfg.same_cone_threshold ** 2), kw
+
+
+def _launch_assoc(args, kw, out=None):
+    """The association kernel on `_assoc_kernel_args`' arguments, into `out`
+    (idx, matched, cost) when given."""
+    return associate_kernel(*args, **kw, out=out)
 
 
 def _add_info(lm_info, to, info):
@@ -526,7 +549,7 @@ def _publish_refine(pose_meas, lm, matched, meas_xy, cfg: SlamConfig, iters: int
     w = matched.to(pose_meas.dtype) * cfg.publish_refine_obs_info
     ixy = 1.0 / cfg.gps_prior_std ** 2
     ith = 1.0 / cfg.heading_prior_std ** 2
-    prior_d = pose_meas.new_tensor([ixy, ixy, ith])
+    prior_d = _const((ixy, ixy, ith), pose_meas.dtype, pose_meas.device)
     p = pose_meas
     for _ in range(iters):
         h, b = _refine_system(p, lm, meas_xy, w)

@@ -8,7 +8,9 @@ input and output ([S, N, 2], [S, M, 2], ...); the kernel covers all S in
 one launch, as the JAX package's vmapped Pallas kernel does.
 
 `associate_kernel` takes the twin only for tensors that lie on the CPU; for
-CUDA tensors it launches the kernel or raises. `launches` counts the kernel
+CUDA tensors it launches the kernel or raises. With `out`, it writes into
+three given tensors instead of new ones, so a CUDA graph captured after the
+call can read them at fixed addresses. `launches` counts the kernel
 launches this process made.
 """
 from __future__ import annotations
@@ -109,7 +111,7 @@ def _bad(name, t, dtype, shape, dev, contiguous=True):
 
 def associate_kernel(obs_xy, obs_type, lm_xy, lm_type, gate2,
                      lm_cov_inv_packed=None, mahalanobis: bool = False,
-                     obs_valid=None, lm_count=None):
+                     obs_valid=None, lm_count=None, out=None):
     """Type-gated nearest association. Returns (idx int32, matched bool,
     cost f32), each [N], or [S, N] for S sessions.
 
@@ -121,15 +123,22 @@ def associate_kernel(obs_xy, obs_type, lm_xy, lm_type, gate2,
     False, and a landmark at index >= `lm_count` (int32 scalar tensor), never
     match. The lowest landmark index wins ties. For S sessions every one of
     these has a leading axis S ([S,N,2], [S,N], [S,M,2], [S,M], [S,M,3],
-    [S,N], and `lm_count` [S]), and one launch covers them all.
+    [S,N], and `lm_count` [S]), and one launch covers them all. `out`, when
+    given, is the (idx, matched, cost) to write and return: contiguous, of
+    the result's dtypes and shape, on the inputs' device.
     """
     global launches
     with stage("slam.assoc"):
         if mahalanobis and lm_cov_inv_packed is None:
             raise ValueError("mahalanobis needs lm_cov_inv_packed")
         if not obs_xy.is_cuda:
-            return associate_plain(obs_xy, obs_type, lm_xy, lm_type, gate2,
-                                   lm_cov_inv_packed, mahalanobis, obs_valid, lm_count)
+            got = associate_plain(obs_xy, obs_type, lm_xy, lm_type, gate2,
+                                  lm_cov_inv_packed, mahalanobis, obs_valid, lm_count)
+            if out is None:
+                return got
+            for o, g in zip(out, got):
+                o.copy_(g)
+            return tuple(out)
         lead = tuple(obs_xy.shape[:-2])
         if len(lead) > 1:
             raise ValueError(f"obs_xy: want [N, 2] or [S, N, 2], got {tuple(obs_xy.shape)}")
@@ -154,9 +163,15 @@ def associate_kernel(obs_xy, obs_type, lm_xy, lm_type, gate2,
             count = lm_count.data_ptr()
         if obs_xy.data_ptr() % 8 or lm_xy.data_ptr() % 8:
             raise ValueError("obs_xy and lm_xy must be 8-byte aligned (read as float2)")
-        idx = torch.empty((*lead, n), dtype=torch.int32, device=obs_xy.device)
-        cost = torch.empty((*lead, n), dtype=torch.float32, device=obs_xy.device)
-        matched = torch.empty((*lead, n), dtype=torch.bool, device=obs_xy.device)
+        if out is None:
+            idx = torch.empty((*lead, n), dtype=torch.int32, device=obs_xy.device)
+            cost = torch.empty((*lead, n), dtype=torch.float32, device=obs_xy.device)
+            matched = torch.empty((*lead, n), dtype=torch.bool, device=obs_xy.device)
+        else:
+            idx, matched, cost = out
+            _bad("out idx", idx, torch.int32, (*lead, n), dev)
+            _bad("out matched", matched, torch.bool, (*lead, n), dev)
+            _bad("out cost", cost, torch.float32, (*lead, n), dev)
         if n == 0 or s == 0:
             return idx, matched, cost
         if _entry is None:
