@@ -759,3 +759,28 @@ def test_block_graph_segments_do_not_sync(cuda, monkeypatch):
         finally:
             torch.cuda.set_sync_debug_mode(0)
         torch.cuda.synchronize()
+
+
+def test_improved_fleet_spans_leave_the_bits_alone(cuda, deterministic):
+    """The improved fleet pass (the benchmark's `improved_fleet`
+    configuration) at S = 8 under the profiler, whose `slam.window_gn` and
+    `slam.publish_refine` spans then record, gives the bits of two runs
+    without it wherever those two agree, and counts its rounds the same."""
+    from torch.profiler import ProfilerActivity, profile
+    cfg = SlamConfig.improved(capacity=GraphCapacity(384, 256, 4096), use_pallas_association=True)
+    ins = _fleet_inputs(cuda, 8)
+
+    def run():
+        rounds = blocked.window_gn_rounds
+        out = run_sequences_blocked_batched(initial_states(cfg.capacity, 8, cuda), *ins, cfg,
+                                            block=32)
+        torch.cuda.synchronize()
+        return out, blocked.window_gn_rounds - rounds
+
+    (plain, rounds), (again, rounds_again) = run(), run()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        traced, rounds_traced = run()
+    names = {e.key for e in prof.key_averages()}
+    assert {"slam.window_gn", "slam.publish_refine"} <= names
+    assert rounds == rounds_again == rounds_traced > 0
+    _assert_graph_equals_eager(traced, plain, again, chip_smoke.POSE_ATOL)

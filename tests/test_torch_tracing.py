@@ -251,3 +251,31 @@ def test_stage_without_a_profiler_enters_no_record_function(monkeypatch):
         with tracing.stage("slam.test"):
             associate_kernel(obs, types[0], lm, types[1], 4.0)
     assert calls == ["slam.test", "slam.assoc"]
+
+
+def test_improved_pass_spans_its_window_gn_rounds_and_publish_refines(tmp_path):
+    """The improved mode (priors, both refines, a fixed-lag GN every 16
+    keyframes inside block-32 bodies) over the fleet's first 48 frames:
+    one `slam.window_gn` per batched round (each inside its mapping block,
+    with one `slam.gn.iteration` per window step inside it) and one
+    `slam.publish_refine` per mapping block with a firing; the counters
+    match the firings that the outputs imply (each session fires where its
+    keyframe count reaches a multiple of 16 with more than 4 landmarks);
+    the outputs as without the profiler."""
+    cfg = SlamConfig.improved(capacity=CAP, use_pallas_association=True)
+    stack = tuple(x[:, :48] for x in _fleet())
+    rounds, firings = blocked.window_gn_rounds, blocked.window_gn_firings
+    with _counting(gn, ("window_gn_step",)) as steps:
+        out, spans = _traced(lambda: _pass(cfg, stack), tmp_path)
+    rounds, firings = blocked.window_gn_rounds - rounds, blocked.window_gn_firings - firings
+    n_lm = out[1].n_landmarks.numpy()
+    t = np.arange(1, 49)
+    implied = [list(np.flatnonzero((t % 16 == 0) & (n_lm[s] > 4))) for s in range(2)]
+    assert implied == [[15, 31, 47]] * 2
+    assert firings == 6 and rounds == 3 == _count(spans, "slam.window_gn")
+    assert _count(spans, "slam.window_gn", ("slam.mapping_block",)) == rounds
+    assert _count(spans, "slam.publish_refine", ("slam.mapping_block",)) == 2 \
+        == _count(spans, "slam.publish_refine")
+    assert _count(spans, "slam.gn.iteration", ("slam.window_gn",)) == steps["window_gn_step"] \
+        == _count(spans, "slam.gn.iteration") > 0
+    _assert_equal(out, _pass(cfg, stack))

@@ -37,6 +37,9 @@ rest (one graph where the association is dense). The host reads, the GNs,
 the state holds and the merge stay eager, and the graphs replay the eager
 kernels in the eager order, so the results are the eager path's bit for
 bit. `graph_captures` and `graph_replays` count what this process did.
+Each batched periodic-GN round is a `slam.window_gn` span, counted in
+`window_gn_rounds` and `window_gn_firings`, and the publish refine after a
+block's firings a `slam.publish_refine` span.
 
 A write the JAX package drops with ``mode="drop"`` (a landmark slot, pose
 or edge past its capacity) is sent to a spare row past the end of the
@@ -756,6 +759,18 @@ def _enable(flags, device):
     return None if all(flags) else torch.tensor(flags, device=device)
 
 
+def _periodic_round(g, cfg: SlamConfig, fire, device, end=None, end_obs=None):
+    """One batched round of the periodic GN for the sessions whose `fire`
+    (S host bools) is set, the others held bit for bit: one `slam.window_gn`
+    span, counted in `window_gn_rounds` and, per firing session, in
+    `window_gn_firings`."""
+    global window_gn_rounds, window_gn_firings
+    window_gn_rounds += 1
+    window_gn_firings += sum(fire)
+    with stage("slam.window_gn"):
+        return periodic_gn(g, cfg, end=end, end_obs=end_obs, enable=_enable(fire, device))
+
+
 def _midblock_firings(g, cfg: SlamConfig, firing, n_pose_series, n_obs_series=None):
     """The mid-block firings of a batched block, in the order of their
     frames: firing[s] lists session s's firing frames. Round j runs every
@@ -766,10 +781,10 @@ def _midblock_firings(g, cfg: SlamConfig, firing, n_pose_series, n_obs_series=No
     dev = n_pose_series.device
     for j in range(max(map(len, firing), default=0)):
         at = torch.tensor([x[j] if j < len(x) else 0 for x in firing], device=dev)[:, None]
-        g = periodic_gn(g, cfg, end=torch.gather(n_pose_series, 1, at)[:, 0],
-                        end_obs=(None if n_obs_series is None
-                                 else torch.gather(n_obs_series, 1, at)[:, 0]),
-                        enable=_enable([j < len(firing[s]) for s in range(S)], dev))
+        g = _periodic_round(g, cfg, [j < len(firing[s]) for s in range(S)], dev,
+                            end=torch.gather(n_pose_series, 1, at)[:, 0],
+                            end_obs=(None if n_obs_series is None
+                                     else torch.gather(n_obs_series, 1, at)[:, 0]))
     return g
 
 
@@ -797,20 +812,21 @@ def _mapping_periodic(ns: SlamState, outs, aux, fires, act, closed, kcf, obs, po
         firing = [[f for f in range(B) if fires[s][f]] if gate[s] else [] for s in range(S)]
         g2 = _midblock_firings(g2, cfg, firing, aux["n_pose_series"], aux["n_obs_series"])
         if cfg.mapping_publish_refine and any(firing):
-            lm_idx, matched = aux["pub_rows"]
-            lm = _rows_at(g2.lm_xy, lm_idx.reshape(S, -1)).reshape(*lm_idx.shape, 2)
-            ref = _publish_refine(poses, lm, matched, _body_xy(obs, cfg), cfg)
-            fired_before = torch.tensor([[gate[s] and any(fires[s][:f]) for f in range(B)]
-                                         for s in range(S)], device=dev)
-            upd = fired_before & (aux["n_pose_series"] - 1 >= cfg.periodic_gn_every)
-            outs = dataclasses.replace(outs, pose=torch.where(upd[..., None], ref, outs.pose))
+            with stage("slam.publish_refine"):
+                lm_idx, matched = aux["pub_rows"]
+                lm = _rows_at(g2.lm_xy, lm_idx.reshape(S, -1)).reshape(*lm_idx.shape, 2)
+                ref = _publish_refine(poses, lm, matched, _body_xy(obs, cfg), cfg)
+                fired_before = torch.tensor([[gate[s] and any(fires[s][:f]) for f in range(B)]
+                                             for s in range(S)], device=dev)
+                upd = fired_before & (aux["n_pose_series"] - 1 >= cfg.periodic_gn_every)
+                outs = dataclasses.replace(outs, pose=torch.where(upd[..., None], ref, outs.pose))
         do_p = [gate[s] and fires[s][-1] for s in range(S)]
     else:
         fb = [act[s] and (any(fires[s][:-1]) or (fires[s][-1] and bool(closed[s])))
               for s in range(S)]
         do_p = [act[s] and not fb[s] and fires[s][-1] for s in range(S)]
         if any(do_p):
-            g2 = periodic_gn(g2, cfg, enable=_enable(do_p, dev))
+            g2 = _periodic_round(g2, cfg, do_p, dev)
     if any(do_p):
         pose = None
         if cfg.use_gps_prior and not cfg.mapping_publish_refine:
@@ -840,7 +856,7 @@ def _loc_periodic(st: SlamState, ns: SlamState, outs, aux, fires, act, okp, cfg:
         fb = [act[s] and any(fires[s][:-1]) for s in range(S)]
         do_gn = [act[s] and not fb[s] and fires[s][-1] for s in range(S)]
         if any(do_gn):
-            g2 = periodic_gn(g2, cfg, enable=_enable(do_gn, dev))
+            g2 = _periodic_round(g2, cfg, do_gn, dev)
     do_p = [act[s] and not fb[s] and fires[s][-1] for s in range(S)]
     if any(do_p) and (cfg.periodic_gn_window == 0 or cfg.periodic_gn_window_landmarks):
         outs = _patch_last(outs, g2, aux, cfg, do_p)
@@ -898,6 +914,8 @@ _BODIES = {"mapping": (_mapping_head, _mapping_tail), "loc": (_loc_head, _loc_ta
 
 graph_captures = 0    # block bodies this process captured as CUDA graphs, one per key
 graph_replays = 0     # blocks this process ran by replaying them
+window_gn_rounds = 0  # batched periodic-GN rounds this process ran (`_periodic_round`)
+window_gn_firings = 0  # session windows those rounds solved: their firing sessions summed
 _GRAPH_KEYS = 8       # keys kept, the least recently used dropped: each holds a memory pool
 _graphs: dict = {}
 

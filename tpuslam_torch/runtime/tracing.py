@@ -15,8 +15,10 @@ after long profiles, so a trace may hold fewer of them than ran.
 
 The program's own stages are `stage` spans named `slam.*`: the blocked
 pipeline's `slam.mapping_block`, `slam.loc_block`, `slam.block_graph` (a
-block replayed as CUDA graphs, inside its block's span), `slam.closure_gn`
-and `slam.per_frame` (`frontend/blocked.py`), `slam.assoc`
+block replayed as CUDA graphs, inside its block's span), `slam.window_gn`
+(one batched round of the periodic GN) and `slam.publish_refine` (the
+published poses refined after a block's firings), both inside their
+block's span, `slam.closure_gn` and `slam.per_frame` (`frontend/blocked.py`), `slam.assoc`
 (`ops/assoc_kernel.py`), `slam.gn.iteration` (`backend/gauss_newton.py`),
 and the fusion's `slam.fusion.dedup`, `slam.fusion.merge` and
 `slam.fusion.gn` (`parallel/fusion.py`). Under a profiler each is a
