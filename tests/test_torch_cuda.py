@@ -15,6 +15,8 @@ import pytest
 import torch
 
 import chip_smoke
+import test_torch_window_graph as WG
+from tpuslam_torch.backend import gauss_newton as gn
 from tpuslam_torch.backend.graph import GraphCapacity
 from tpuslam_torch.frontend import blocked
 from tpuslam_torch.frontend.blocked import run_pass_blocked, run_sequences_blocked_batched
@@ -22,7 +24,7 @@ from tpuslam_torch.frontend.pipeline import run_pass
 from tpuslam_torch.ops import assoc_kernel as A
 from tpuslam_torch.ops import cholesky as C
 from tpuslam_torch.parallel import fusion
-from tpuslam_torch.parallel.batch import initial_states
+from tpuslam_torch.parallel.batch import initial_states, run_sequences_batched
 from tpuslam_torch.runtime.config import SlamConfig
 from tpuslam_torch.sim import SimConfig, simulate, skidpad, trackdrive
 
@@ -642,6 +644,7 @@ def deterministic(monkeypatch):
     value after a GN may differ in its last bits from one run to the next),
     and the graphs captured anew under them."""
     monkeypatch.setattr(blocked, "_graphs", {})
+    monkeypatch.setattr(gn, "_window_graphs", {})
     torch.use_deterministic_algorithms(True, warn_only=True)
     yield
     torch.use_deterministic_algorithms(False)
@@ -784,3 +787,98 @@ def test_improved_fleet_spans_leave_the_bits_alone(cuda, deterministic):
     assert {"slam.window_gn", "slam.publish_refine"} <= names
     assert rounds == rounds_again == rounds_traced > 0
     _assert_graph_equals_eager(traced, plain, again, chip_smoke.POSE_ATOL)
+
+
+def _eager_windows(monkeypatch, fn):
+    """`fn()` with the window GN's loops run eagerly."""
+    with monkeypatch.context() as m:
+        m.setattr(gn, "_use_window_graphs", lambda g: False)
+        return fn()
+
+
+def test_window_graphs_equal_eager_improved_fleet(cuda, deterministic, monkeypatch):
+    """The improved fleet pass (the benchmark's `improved_fleet`
+    configuration) at S = 8, its window rounds replayed as CUDA graphs: two
+    keys (the mapping rounds anchored at `end` and `end_obs`, the
+    localization rounds at `end`), captured once each in the first pass and
+    replayed once per round; the sessions but the first stop inserting
+    poses at frame 300, so that the first fires alone in the last rounds;
+    the states and outputs of the passes whose rounds ran eagerly."""
+    cfg = SlamConfig.improved(capacity=GraphCapacity(384, 256, 4096), use_pallas_association=True)
+    ins = _fleet_inputs(cuda, 8, cut=300)
+
+    def run():
+        return run_sequences_blocked_batched(initial_states(cfg.capacity, 8, cuda), *ins, cfg,
+                                             block=32)
+    eager, eager_again = _eager_windows(monkeypatch, run), _eager_windows(monkeypatch, run)
+    for k in range(2):
+        counts = (gn.window_graph_captures, gn.window_graph_replays, blocked.window_gn_rounds,
+                  blocked.window_gn_firings)
+        got = run()
+        captures, replays, rounds, firings = (
+            a - b for a, b in zip((gn.window_graph_captures, gn.window_graph_replays,
+                                   blocked.window_gn_rounds, blocked.window_gn_firings), counts))
+        assert captures == (2 if k == 0 else 0)
+        assert replays == rounds > 0
+        assert firings < 8 * rounds
+        _assert_graph_equals_eager(got, eager, eager_again, chip_smoke.POSE_ATOL)
+    assert len(gn._window_graphs) == 2
+    assert {(key[4], key[5]) for key in gn._window_graphs} == {(False, False), (False, True)}
+
+
+@pytest.mark.parametrize("anchor", list(WG.ANCHORS))
+@pytest.mark.parametrize("landmarks", [True, False], ids=["map_free", "map_fixed"])
+def test_window_graphs_equal_eager_sessions_stopping_apart(cuda, deterministic, monkeypatch,
+                                                           landmarks, anchor):
+    """A round of four sessions on the card: one stops after the first
+    iteration, one after the second, one runs all three, one is not
+    enabled (`tests/test_torch_window_graph.py`). The replayed loop, which
+    runs every iteration, gives the early-exit loop's bits."""
+    g, end, end_obs, enable = WG.window_batch(cuda, landmarks, anchor)
+    assert WG.iterations_run(g, landmarks, end, end_obs, enable) == WG.STOPS
+
+    def run():
+        return gn.optimize_window(g, WG.CFG, WG.W, WG.EW, enable=enable, landmarks=landmarks,
+                                  end=end, end_obs=end_obs)
+    eager, eager_again = _eager_windows(monkeypatch, run), _eager_windows(monkeypatch, run)
+    replays = gn.window_graph_replays
+    got = run()
+    assert gn.window_graph_replays == replays + 1
+    _assert_graph_equals_eager(got, eager, eager_again, chip_smoke.POSE_ATOL)
+    assert torch.equal(got.poses[3], g.poses[3]) and torch.equal(got.lm_xy[3], g.lm_xy[3])
+
+
+def test_window_graphs_equal_eager_in_the_per_frame_batched_engine(cuda, deterministic,
+                                                                  monkeypatch):
+    """`parallel/batch.py`'s stacked window GN, fired within a keyframe for
+    every session at frames 16, 32 and 48 (its window at the graph's
+    head), replays as graphs and gives the eager loop's bits."""
+    cfg = SlamConfig.improved(capacity=GraphCapacity(384, 256, 4096), use_pallas_association=True)
+    obs, valid, poses = (x[:, :48] for x in _fleet_inputs(cuda, 3))
+
+    def run():
+        return run_sequences_batched(initial_states(cfg.capacity, 3, cuda), obs, valid, poses,
+                                     cfg)
+    eager, eager_again = _eager_windows(monkeypatch, run), _eager_windows(monkeypatch, run)
+    replays = gn.window_graph_replays
+    got = run()
+    assert gn.window_graph_replays > replays
+    _assert_graph_equals_eager(got, eager, eager_again, chip_smoke.POSE_ATOL)
+
+
+def test_window_graph_segments_do_not_sync(cuda, monkeypatch):
+    """A replayed round's copies in and its two graphs make no host sync."""
+    monkeypatch.setattr(gn, "_window_graphs", {})
+    g, end, end_obs, enable = WG.window_batch(cuda, True, "end_and_end_obs")
+    gn.optimize_window(g, WG.CFG, WG.W, WG.EW, enable=enable, end=end, end_obs=end_obs)
+    (wg,) = gn._window_graphs.values()
+    ins = (gn._graph_fields(torch.clone, g), enable.clone(), end.clone(), end_obs.clone())
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        wg.load(*ins)
+        wg.head.replay()
+        wg.tail.replay()
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    torch.cuda.synchronize()

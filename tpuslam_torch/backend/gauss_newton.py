@@ -43,7 +43,10 @@ fire in a block of the batched pipeline are one batched solve.
 Host synchronisation: each single-graph `gn_step` reads (n_poses, n_obs)
 once to pick its buckets, and `optimize` and `optimize_window` read the
 update size once per iteration for their early exit (a batch: its [S]
-running mask, once per iteration).
+running mask, once per iteration). On CUDA, `optimize_window` on a batch
+of S > 1 sessions replays each iteration as two CUDA graphs around the
+eager factor and solve (`_WindowGraph`); the solve (`torch.cholesky_solve`
+on a batch) waits on the card once an iteration by itself.
 """
 from __future__ import annotations
 
@@ -295,15 +298,25 @@ def _schur_eliminate(w0, w1, hll, gl):
 def _schur_back(s, rhs, w0, w1, gl, hll_inv, use_cholesky_kernel=False):
     """(dp, dl): the reduced system S dp = rhs factored and solved, then
     dl = -Hll^-1 (gl + W^T dp), with `hll_inv` from `_schur_eliminate`."""
+    dp = _factor_solve(s, rhs, use_cholesky_kernel)
+    return dp, _back_substitute(dp, w0, w1, gl, hll_inv)
+
+
+def _factor_solve(s, rhs, use_cholesky_kernel=False):
+    """dp of S dp = rhs, batched: S factored and the two triangular solves."""
     if use_cholesky_kernel:
         from tpuslam_torch.ops.cholesky import cholesky
         c = cholesky(s)
     else:
         c = torch.linalg.cholesky_ex(s).L
-    dp = torch.cholesky_solve(rhs[..., None], c)[..., 0]
+    return torch.cholesky_solve(rhs[..., None], c)[..., 0]
+
+
+def _back_substitute(dp, w0, w1, gl, hll_inv):
+    """dl = -Hll^-1 (gl + W^T dp), with `hll_inv` from `_schur_eliminate`."""
     r0, r1 = gl[..., 0] + _mv(w0.mT, dp), gl[..., 1] + _mv(w1.mT, dp)
     ia, ib, ic = hll_inv
-    return dp, -torch.stack([ia * r0 + ib * r1, ib * r0 + ic * r1], dim=-1)
+    return -torch.stack([ia * r0 + ib * r1, ib * r0 + ic * r1], dim=-1)
 
 
 def _apply_gauge_blocked(g: FactorGraph, cfg: GNConfig, h_diag, h_off, w, hll, gp, gl):
@@ -526,8 +539,8 @@ def window_gn_step(g: FactorGraph, cfg: GNConfig, window: int, edge_window: int,
     I2` with n the landmark's edge count before `end_obs`, and the
     out-of-window edges act as a prior centred at `lm_prior` (None: at the
     current estimate, which gives no gradient). The reduced [3W, 3W]
-    system goes through `schur_solve_split`. With `landmarks=False` the
-    map is constant and the pose system is factored by
+    system goes through `schur_solve_split`'s steps. With `landmarks=False`
+    the map is constant and the pose system is factored by
     `torch.linalg.cholesky_ex`.
 
     `end` / `end_obs` (int32 tensors) anchor the window at a past pose and
@@ -547,102 +560,139 @@ def window_gn_step(g: FactorGraph, cfg: GNConfig, window: int, edge_window: int,
                              None if end_obs is None else end_obs.reshape(1))
         return _graph_fields(lambda x: x[0], out)
     with precision(cfg, g.poses):
-        W, EW = window, edge_window
-        S, P = g.poses.shape[:2]
-        L, E = g.lm_xy.shape[1], g.obs_pose.shape[1]
-        if W > P or EW > E:
-            raise ValueError(f"window {W} / edge window {EW} exceed the graph's capacity "
-                             f"({P} poses, {E} edges)")
-        dtype, dev = g.poses.dtype, g.poses.device
-        sess = torch.arange(S, device=dev)[:, None] if S > 1 else None
-        n = (g.n_poses if end is None else end)[:, None]
-        e_stop = (g.n_obs if end_obs is None else end_obs)[:, None]
-        w0, kg, poses_w, h_diag, h_off, gp = _window_chain(g, cfg, W, n, sess)
-        kgl = kg.long()
+        system = _window_system(g, cfg, window, edge_window, landmarks, lm_prior, end, end_obs)
+        with _fp32():
+            dp = _factor_solve(system["s"], system["rhs"])
+        return _window_update(g, system, dp)
 
-        # trailing landmark edges whose pose lies in the window; each session's
-        # sums go to its own rows of one flat buffer
-        e0 = torch.clamp(e_stop - EW, min=0)
-        ke = (e0 + torch.arange(EW, device=dev)).long()
-        op = _take(g.obs_pose, ke, sess)
-        ol = torch.clamp(_take(g.obs_lm, ke, sess).long(), 0, L - 1)
-        in_win = (ke < e_stop) & (op >= w0)
-        w_l = cfg.lm_info * in_win.to(dtype)
-        local = torch.clamp(op - w0, 0, W - 1).long()
-        r_l, j_lp, j_ll = landmark_residuals(_take(poses_w, local, sess), _take(g.lm_xy, ol, sess),
-                                             _take(g.obs_xy, ke, sess))
-        wl3 = w_l[..., None, None]
-        jtp = j_lp.transpose(-1, -2)
-        row = _flat(local, W, sess)
-        h_diag = h_diag.reshape(S * W, 3, 3).index_add(
-            0, row, (wl3 * (jtp @ j_lp)).reshape(-1, 3, 3)).reshape(S, W, 3, 3)
-        gp = gp.reshape(S * W, 3).index_add(
-            0, row, (w_l[..., None] * (jtp @ r_l[..., None])[..., 0]).reshape(-1, 3)
-        ).reshape(S, W, 3)
 
-        # gauge clamping by global index (the rows gn_step clamps)
-        free = (kg >= cfg.fix_first_poses) & (kg < n)
-        fpb = free.to(dtype)[..., None, None]
-        eye3 = torch.eye(3, dtype=dtype, device=dev)
-        h_diag = h_diag * fpb + eye3 * (1.0 - fpb)
-        prev_free = torch.cat([free.new_zeros(S, 1), free[:, :-1]], dim=1)
-        h_off = h_off * (free & prev_free).to(dtype)[..., None, None]
-        gp = gp * free.to(dtype)[..., None]
-        if cfg.damping:
-            h_diag = h_diag + eye3 * cfg.damping * fpb
+def _window_system(g: FactorGraph, cfg: GNConfig, W: int, EW: int, landmarks: bool,
+                   lm_prior, end, end_obs) -> dict:
+    """The part of `window_gn_step` on a stacked graph [S] before its
+    factor: a dict of the reduced system `s` [S, 3W, 3W] and `rhs` [S, 3W]
+    (unbatched for S = 1) and what `_window_update` reads. It reads nothing
+    from the host, so a CUDA graph can hold it."""
+    S, P = g.poses.shape[:2]
+    L, E = g.lm_xy.shape[1], g.obs_pose.shape[1]
+    if W > P or EW > E:
+        raise ValueError(f"window {W} / edge window {EW} exceed the graph's capacity "
+                         f"({P} poses, {E} edges)")
+    dtype, dev = g.poses.dtype, g.poses.device
+    sess = torch.arange(S, device=dev)[:, None] if S > 1 else None
+    n = (g.n_poses if end is None else end)[:, None]
+    e_stop = (g.n_obs if end_obs is None else end_obs)[:, None]
+    w0, kg, poses_w, h_diag, h_off, gp = _window_chain(g, cfg, W, n, sess)
 
-        # one session solves unbatched (see the docstring)
-        solve_in = (lambda x: x[0]) if S == 1 else (lambda x: x)
-        solve_out = (lambda x: x[None]) if S == 1 else (lambda x: x)
-        hpp = densify_hpp(h_diag, h_off)
-        if landmarks:
-            # Hll from each landmark's total edge count (the out-of-window
-            # edges' marginal prior plus the in-window ones), the coupling and
-            # gl from the in-window edges only
-            kl = torch.arange(L, device=dev)
-            lm_all = g.obs_lm.long()
-            counted = (torch.arange(E, device=dev) < e_stop) & (lm_all >= 0) & (lm_all < L)
-            n_tot = torch.zeros(S * (L + 1), dtype=dtype, device=dev).index_add(
-                0, _flat(torch.where(counted, lm_all, L), L + 1, sess),
-                counted.to(dtype).reshape(-1)).reshape(S, L + 1)[:, :L]
-            flm = ((kl >= cfg.fix_first_landmarks) & (kl < g.n_landmarks[:, None])).to(dtype)
-            eye2 = torch.eye(2, dtype=dtype, device=dev)
-            hll_d = cfg.lm_info * n_tot * flm
-            hll = torch.where(hll_d > 0, hll_d, 1.0)[..., None, None] * eye2
-            if cfg.damping:
-                hll = hll + eye2 * cfg.damping * flm[..., None, None]
-            w_e = wl3 * (jtp @ j_ll)                             # [S, EW, 3, 2]
-            wc = torch.zeros((S * W * L, 3, 2), dtype=dtype, device=dev).index_add(
-                0, _flat(local * L + ol, W * L, sess), w_e.reshape(-1, 3, 2))
-            wc = wc.reshape(S, W, L, 3, 2).permute(0, 1, 3, 2, 4).reshape(S, 3 * W, L, 2)
-            mask = free.to(dtype).repeat_interleave(3, dim=1)[..., None] * flm[:, None, :]
-            jtl = j_ll.transpose(-1, -2)
-            lrow = _flat(ol, L, sess)
-            gl = torch.zeros((S * L, 2), dtype=dtype, device=dev).index_add(
-                0, lrow, (w_l[..., None] * (jtl @ r_l[..., None])[..., 0]).reshape(-1, 2)
-            ).reshape(S, L, 2) * flm[..., None]
-            if lm_prior is not None:
-                # the marginalized edges' restoring gradient, centred at lm_prior
-                n_in = torch.zeros(S * L, dtype=dtype, device=dev).index_add(
-                    0, lrow, in_win.to(dtype).reshape(-1)).reshape(S, L)
-                n_out = torch.clamp(n_tot - n_in, min=0.0)
-                gl = gl + (cfg.lm_info * n_out * flm)[..., None] * (g.lm_xy - lm_prior)
-            dp, dl = schur_solve_split(*(solve_in(x) for x in (
-                hpp, wc[..., 0] * mask, wc[..., 1] * mask, hll, gp.reshape(S, -1), gl)))
-            dp, dl = solve_out(dp), solve_out(dl)
-            lm_xy = g.lm_xy + dl
-        else:
-            with _fp32():
-                c = torch.linalg.cholesky_ex(solve_in(hpp)).L
-                dp = solve_out(torch.cholesky_solve(solve_in(-gp.reshape(S, -1, 1)), c)[..., 0])
-            lm_xy = g.lm_xy
-        new_w = poses_w + dp.reshape(S, W, 3)
-        # clamped rows get an exact-zero update; wrap_angle is not a bit-exact
-        # identity in f32, so they keep their value
-        theta = torch.where(free, se2.wrap_angle(new_w[..., 2]), new_w[..., 2])
-        new_w = torch.cat([new_w[..., :2], theta[..., None]], dim=-1)
-        poses = g.poses.reshape(S * P, 3).index_put((_flat(kgl, P, sess),), new_w.reshape(-1, 3))
-        return dataclasses.replace(g, poses=poses.reshape(S, P, 3), lm_xy=lm_xy)
+    # trailing landmark edges whose pose lies in the window; each session's
+    # sums go to its own rows of one flat buffer
+    e0 = torch.clamp(e_stop - EW, min=0)
+    ke = (e0 + torch.arange(EW, device=dev)).long()
+    op = _take(g.obs_pose, ke, sess)
+    ol = torch.clamp(_take(g.obs_lm, ke, sess).long(), 0, L - 1)
+    in_win = (ke < e_stop) & (op >= w0)
+    w_l = cfg.lm_info * in_win.to(dtype)
+    local = torch.clamp(op - w0, 0, W - 1).long()
+    r_l, j_lp, j_ll = landmark_residuals(_take(poses_w, local, sess), _take(g.lm_xy, ol, sess),
+                                         _take(g.obs_xy, ke, sess))
+    wl3 = w_l[..., None, None]
+    jtp = j_lp.transpose(-1, -2)
+    row = _flat(local, W, sess)
+    h_diag = h_diag.reshape(S * W, 3, 3).index_add(
+        0, row, (wl3 * (jtp @ j_lp)).reshape(-1, 3, 3)).reshape(S, W, 3, 3)
+    gp = gp.reshape(S * W, 3).index_add(
+        0, row, (w_l[..., None] * (jtp @ r_l[..., None])[..., 0]).reshape(-1, 3)
+    ).reshape(S, W, 3)
+
+    # gauge clamping by global index (the rows gn_step clamps)
+    free = (kg >= cfg.fix_first_poses) & (kg < n)
+    fpb = free.to(dtype)[..., None, None]
+    eye3 = torch.eye(3, dtype=dtype, device=dev)
+    h_diag = h_diag * fpb + eye3 * (1.0 - fpb)
+    prev_free = torch.cat([free.new_zeros(S, 1), free[:, :-1]], dim=1)
+    h_off = h_off * (free & prev_free).to(dtype)[..., None, None]
+    gp = gp * free.to(dtype)[..., None]
+    if cfg.damping:
+        h_diag = h_diag + eye3 * cfg.damping * fpb
+
+    # one session solves unbatched (see `window_gn_step`)
+    solve_in = (lambda x: x[0]) if S == 1 else (lambda x: x)
+    hpp = densify_hpp(h_diag, h_off)
+    system = dict(poses_w=poses_w, free=free, kg=kg.long(), sess=sess, back=None)
+    if not landmarks:
+        return dict(system, s=solve_in(hpp), rhs=solve_in(-gp.reshape(S, -1)))
+    # Hll from each landmark's total edge count (the out-of-window edges'
+    # marginal prior plus the in-window ones), the coupling and gl from the
+    # in-window edges only
+    kl = torch.arange(L, device=dev)
+    lm_all = g.obs_lm.long()
+    counted = (torch.arange(E, device=dev) < e_stop) & (lm_all >= 0) & (lm_all < L)
+    n_tot = torch.zeros(S * (L + 1), dtype=dtype, device=dev).index_add(
+        0, _flat(torch.where(counted, lm_all, L), L + 1, sess),
+        counted.to(dtype).reshape(-1)).reshape(S, L + 1)[:, :L]
+    flm = ((kl >= cfg.fix_first_landmarks) & (kl < g.n_landmarks[:, None])).to(dtype)
+    eye2 = torch.eye(2, dtype=dtype, device=dev)
+    hll_d = cfg.lm_info * n_tot * flm
+    hll = torch.where(hll_d > 0, hll_d, 1.0)[..., None, None] * eye2
+    if cfg.damping:
+        hll = hll + eye2 * cfg.damping * flm[..., None, None]
+    w_e = wl3 * (jtp @ j_ll)                             # [S, EW, 3, 2]
+    wc = torch.zeros((S * W * L, 3, 2), dtype=dtype, device=dev).index_add(
+        0, _flat(local * L + ol, W * L, sess), w_e.reshape(-1, 3, 2))
+    wc = wc.reshape(S, W, L, 3, 2).permute(0, 1, 3, 2, 4).reshape(S, 3 * W, L, 2)
+    mask = free.to(dtype).repeat_interleave(3, dim=1)[..., None] * flm[:, None, :]
+    jtl = j_ll.transpose(-1, -2)
+    lrow = _flat(ol, L, sess)
+    gl = torch.zeros((S * L, 2), dtype=dtype, device=dev).index_add(
+        0, lrow, (w_l[..., None] * (jtl @ r_l[..., None])[..., 0]).reshape(-1, 2)
+    ).reshape(S, L, 2) * flm[..., None]
+    if lm_prior is not None:
+        # the marginalized edges' restoring gradient, centred at lm_prior
+        n_in = torch.zeros(S * L, dtype=dtype, device=dev).index_add(
+            0, lrow, in_win.to(dtype).reshape(-1)).reshape(S, L)
+        n_out = torch.clamp(n_tot - n_in, min=0.0)
+        gl = gl + (cfg.lm_info * n_out * flm)[..., None] * (g.lm_xy - lm_prior)
+    hpp, w0, w1, hll, gp, gl = (solve_in(x) for x in (
+        hpp, wc[..., 0] * mask, wc[..., 1] * mask, hll, gp.reshape(S, -1), gl))
+    with _fp32():
+        s_w, r_w, hll_inv = _schur_eliminate(w0, w1, hll, gl)
+        return dict(system, s=hpp - s_w, rhs=-gp + r_w, back=(w0, w1, gl, hll_inv))
+
+
+def _window_update(g: FactorGraph, system: dict, dp) -> FactorGraph:
+    """`g` moved by one `window_gn_step`, from its `_window_system` and the
+    solution `dp` of the reduced system: the landmarks' back-substitution
+    (with `landmarks=True`), the window poses' update with their headings
+    wrapped, written into the graph's rows."""
+    S, P = g.poses.shape[:2]
+    W = system["kg"].shape[1]
+    solve_out = (lambda x: x[None]) if S == 1 else (lambda x: x)
+    lm_xy = g.lm_xy
+    if system["back"] is not None:
+        with _fp32():
+            dl = _back_substitute(dp, *system["back"])
+        lm_xy = g.lm_xy + solve_out(dl)
+    free = system["free"]
+    new_w = system["poses_w"] + solve_out(dp).reshape(S, W, 3)
+    # clamped rows get an exact-zero update; wrap_angle is not a bit-exact
+    # identity in f32, so they keep their value
+    theta = torch.where(free, se2.wrap_angle(new_w[..., 2]), new_w[..., 2])
+    new_w = torch.cat([new_w[..., :2], theta[..., None]], dim=-1)
+    poses = g.poses.reshape(S * P, 3).index_put((_flat(system["kg"], P, system["sess"]),),
+                                               new_w.reshape(-1, 3))
+    return dataclasses.replace(g, poses=poses.reshape(S, P, 3), lm_xy=lm_xy)
+
+
+_PRIOR_AXES: dict = {}   # (dtype, device): (diag(1, 1, 0), diag(0, 0, 1))
+
+
+def _prior_axes(dtype, dev):
+    """The selectors of a pose prior's x/y and heading rows, made once per
+    dtype and device: a CUDA graph cannot copy them from the host."""
+    key = (dtype, dev)
+    if key not in _PRIOR_AXES:
+        _PRIOR_AXES[key] = tuple(torch.diag(torch.tensor(d, dtype=dtype, device=dev))
+                                 for d in ([1.0, 1.0, 0.0], [0.0, 0.0, 1.0]))
+    return _PRIOR_AXES[key]
 
 
 def _window_chain(g: FactorGraph, cfg: GNConfig, W: int, n, sess):
@@ -681,8 +731,7 @@ def _window_chain(g: FactorGraph, cfg: GNConfig, W: int, n, sess):
     pose_valid = (kg < n).to(dtype)
     ixy = prior_info_w[..., 0] * pose_valid
     ith = prior_info_w[..., 1] * pose_valid
-    eye_xy = torch.diag(torch.tensor([1.0, 1.0, 0.0], dtype=dtype, device=dev))
-    eye_th = torch.diag(torch.tensor([0.0, 0.0, 1.0], dtype=dtype, device=dev))
+    eye_xy, eye_th = _prior_axes(dtype, dev)
     h_diag = h_diag + ixy[..., None, None] * eye_xy + ith[..., None, None] * eye_th
     r_pr = poses_w - _take(g.prior_pose, kgl, sess)
     r_pr = torch.cat([r_pr[..., :2], se2.wrap_angle(r_pr[..., 2:])], dim=-1)
@@ -698,9 +747,160 @@ def optimize_window(g: FactorGraph, cfg: GNConfig, window: int, edge_window: int
     `g` unchanged; `end` / `end_obs` as in `window_gn_step`. A stacked
     graph [S] takes `enable`, `end` and `end_obs` [S]: one batched step per
     iteration for all sessions, each stopping at its own iteration, and a
-    disabled session comes back bit for bit."""
+    disabled session comes back bit for bit. A stacked graph of S > 1
+    sessions on CUDA (outside a capture) runs the loop as CUDA graphs
+    (`_WindowGraph`), with the same bits."""
     lm_prior = g.lm_xy if landmarks else None
     with precision(cfg, g.poses):
+        if _use_window_graphs(g):
+            return _window_round(g, cfg, window, edge_window, landmarks, enable, end, end_obs)
         return _iterate(g, cfg, lambda gg: window_gn_step(
             gg, cfg, window, edge_window, landmarks=landmarks, lm_prior=lm_prior,
             end=end, end_obs=end_obs), enable)
+
+
+window_graph_captures = 0  # window-GN loops this process captured as CUDA graphs, one per key
+window_graph_replays = 0   # window-GN rounds this process ran by replaying them
+_WINDOW_GRAPH_KEYS = 4     # keys kept, the least recently used dropped: each holds a memory pool
+_window_graphs: dict = {}
+
+
+def _use_window_graphs(g: FactorGraph) -> bool:
+    """Whether `optimize_window` replays its loop as CUDA graphs: a stacked
+    graph of S > 1 sessions on CUDA, not inside another capture."""
+    return (g.poses.is_cuda and g.poses.dim() == 3 and g.poses.shape[0] > 1
+            and not torch.cuda.is_current_stream_capturing())
+
+
+def _copy_into(dsts, srcs):
+    """Each of `srcs` into its place in `dsts`, one `_foreach_copy_` per
+    dtype; a source that is its destination is skipped."""
+    groups = {}
+    for d, s in zip(dsts, srcs):
+        if s is not d:
+            ds, ss = groups.setdefault(d.dtype, ([], []))
+            ds.append(d)
+            ss.append(s)
+    for ds, ss in groups.values():
+        torch._foreach_copy_(ds, ss)
+
+
+class _WindowGraph:
+    """`optimize_window`'s loop over a stacked graph [S] on static inputs (a
+    copy of the first round's graph, `lm_prior`, `end`, `end_obs` and the
+    [S] running mask), `cfg.iterations` iterations a round, each in three
+    parts: the head, from the graph's fields to the reduced system
+    (`_window_system`); the factor and the solve (`_factor_solve`),
+    launched eagerly into a static `dp`; the tail, from `dp` to the update
+    (`_window_update`) kept for the sessions still running, and the
+    running mask updated, both written back into the static inputs for the
+    next iteration: `_iterate_batched`'s loop, with its bits. Once every
+    session has stopped, an iteration changes nothing. On CUDA the head and
+    the tail are CUDA graphs, captured after an eager warm-up on a stream
+    of their own, in one memory pool; on the CPU they run eagerly."""
+
+    def __init__(self, g: FactorGraph, cfg: GNConfig, window: int, edge_window: int,
+                 landmarks: bool, end, end_obs):
+        self.cfg, self.window, self.edge_window = cfg, window, edge_window
+        self.g = _graph_fields(lambda x: x.clone(memory_format=torch.contiguous_format), g)
+        self.lm_prior = g.lm_xy.clone() if landmarks else None
+        self.end = None if end is None else end.clone()
+        self.end_obs = None if end_obs is None else end_obs.clone()
+        S, dev = g.poses.shape[0], g.poses.device
+        self.running = torch.ones(S, dtype=torch.bool, device=dev)
+        self.dp = torch.empty(S, 3 * window, dtype=g.poses.dtype, device=dev)
+        self.ins = [getattr(self.g, f.name) for f in dataclasses.fields(self.g)] + [
+            x for x in (self.lm_prior, self.end, self.end_obs) if x is not None]
+        self.head = self.tail = self.system = None
+        if not g.poses.is_cuda:
+            return
+        side = torch.cuda.Stream(dev)
+        side.wait_stream(torch.cuda.current_stream(dev))
+        with torch.cuda.stream(side):    # the warm-up makes the constants a capture reads
+            self._head()
+            self._solve()
+            self._tail()
+        torch.cuda.current_stream(dev).wait_stream(side)
+        pool = torch.cuda.graph_pool_handle()
+        self.head, self.tail = torch.cuda.CUDAGraph(), torch.cuda.CUDAGraph()
+        with torch.cuda.graph(self.head, pool=pool, stream=side):
+            self._head()
+        with torch.cuda.graph(self.tail, pool=pool, stream=side):
+            self._tail()
+
+    def _head(self):
+        self.system = _window_system(self.g, self.cfg, self.window, self.edge_window,
+                                     self.lm_prior is not None, self.lm_prior, self.end,
+                                     self.end_obs)
+
+    def _solve(self):
+        with _fp32():
+            self.dp.copy_(_factor_solve(self.system["s"], self.system["rhs"]))
+
+    def _tail(self):
+        g, running, tol = self.g, self.running, self.cfg.early_exit_tol
+        g2 = _window_update(g, self.system, self.dp)
+        keep = running[:, None, None]
+        poses = torch.where(keep, g2.poses, g.poses)
+        lm_xy = torch.where(keep, g2.lm_xy, g.lm_xy)
+        if tol > 0.0:
+            delta = torch.maximum(torch.amax(torch.abs(g2.poses - g.poses), dim=(-2, -1)),
+                                  torch.amax(torch.abs(g2.lm_xy - g.lm_xy), dim=(-2, -1)))
+            running.copy_(running & (delta > tol))
+        g.poses.copy_(poses)
+        g.lm_xy.copy_(lm_xy)
+
+    def load(self, g: FactorGraph, enable, end, end_obs):
+        """The round's inputs into the static ones: `g`, its map as the
+        prior's centre, `enable` ([S] or None for all), `end` and `end_obs`
+        (given where the key's were)."""
+        _copy_into(self.ins, [getattr(g, f.name) for f in dataclasses.fields(g)] + [
+            x for x in (g.lm_xy if self.lm_prior is not None else None, end, end_obs)
+            if x is not None])
+        if enable is None:
+            self.running.fill_(True)
+        else:
+            self.running.copy_(enable)
+
+    def run(self, g: FactorGraph, enable, end, end_obs) -> FactorGraph:
+        """The loop on the round's inputs (as `load` takes them): `g` with
+        its poses and map moved, in memory of their own. The factor's solve
+        waits on the card in every iteration already, so the loop reads the
+        running mask after each and stops once no session runs."""
+        self.load(g, enable, end, end_obs)
+        head = self._head if self.head is None else self.head.replay
+        tail = self._tail if self.tail is None else self.tail.replay
+        for _ in range(self.cfg.iterations):
+            with stage("slam.gn.iteration"):
+                head()
+                self._solve()
+                tail()
+                if self.cfg.early_exit_tol > 0.0 and not bool(self.running.any()):
+                    break
+        return dataclasses.replace(g, poses=self.g.poses.clone(), lm_xy=self.g.lm_xy.clone())
+
+
+def _window_round(g: FactorGraph, cfg: GNConfig, window: int, edge_window: int,
+                  landmarks: bool, enable, end, end_obs) -> FactorGraph:
+    """`optimize_window` on a stacked graph by replaying its `_WindowGraph`,
+    captured at the first round of a key: `cfg`, the window sizes,
+    `landmarks`, whether `end` / `end_obs` are given, torch's deterministic
+    setting, the device and every input's shape and dtype. One
+    `slam.window_graph` span."""
+    global window_graph_captures, window_graph_replays
+    leaves = [getattr(g, f.name) for f in dataclasses.fields(g)] + [
+        x for x in (end, end_obs) if x is not None]
+    key = (cfg, window, edge_window, landmarks, end is None, end_obs is None,
+           torch.are_deterministic_algorithms_enabled(), g.poses.device,
+           tuple((t.shape, t.dtype) for t in leaves))
+    wg = _window_graphs.pop(key, None)
+    if wg is None:
+        while len(_window_graphs) >= _WINDOW_GRAPH_KEYS:
+            del _window_graphs[next(iter(_window_graphs))]
+        wg = _WindowGraph(g, cfg, window, edge_window, landmarks, end, end_obs)
+        window_graph_captures += 1
+    _window_graphs[key] = wg
+    with stage("slam.window_graph"):
+        out = wg.run(g, enable, end, end_obs)
+    window_graph_replays += 1
+    return out

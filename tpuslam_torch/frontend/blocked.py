@@ -39,7 +39,9 @@ kernels in the eager order, so the results are the eager path's bit for
 bit. `graph_captures` and `graph_replays` count what this process did.
 Each batched periodic-GN round is a `slam.window_gn` span, counted in
 `window_gn_rounds` and `window_gn_firings`, and the publish refine after a
-block's firings a `slam.publish_refine` span.
+block's firings a `slam.publish_refine` span. A round of S > 1 sessions on
+CUDA replays its iterations as CUDA graphs of its own
+(`gauss_newton.optimize_window`).
 
 A write the JAX package drops with ``mode="drop"`` (a landmark slot, pose
 or edge past its capacity) is sent to a spare row past the end of the
@@ -759,16 +761,17 @@ def _enable(flags, device):
     return None if all(flags) else torch.tensor(flags, device=device)
 
 
-def _periodic_round(g, cfg: SlamConfig, fire, device, end=None, end_obs=None):
+def _periodic_round(g, cfg: SlamConfig, fire, enable, end=None, end_obs=None):
     """One batched round of the periodic GN for the sessions whose `fire`
-    (S host bools) is set, the others held bit for bit: one `slam.window_gn`
-    span, counted in `window_gn_rounds` and, per firing session, in
+    (S host bools) is set, `enable` its [S] mask on the device (None when
+    all are), the others held bit for bit: one `slam.window_gn` span,
+    counted in `window_gn_rounds` and, per firing session, in
     `window_gn_firings`."""
     global window_gn_rounds, window_gn_firings
     window_gn_rounds += 1
     window_gn_firings += sum(fire)
     with stage("slam.window_gn"):
-        return periodic_gn(g, cfg, end=end, end_obs=end_obs, enable=_enable(fire, device))
+        return periodic_gn(g, cfg, end=end, end_obs=end_obs, enable=enable)
 
 
 def _midblock_firings(g, cfg: SlamConfig, firing, n_pose_series, n_obs_series=None):
@@ -776,12 +779,15 @@ def _midblock_firings(g, cfg: SlamConfig, firing, n_pose_series, n_obs_series=No
     frames: firing[s] lists session s's firing frames. Round j runs every
     session's j-th firing as one batched window GN, each anchored at its
     firing frame's pose (and edge) counts; a session with fewer firings
-    sits the round out, bit for bit."""
+    sits the round out, bit for bit. Each round's firing frames and enable
+    mask go to the device in one copy."""
     S = len(firing)
     dev = n_pose_series.device
     for j in range(max(map(len, firing), default=0)):
-        at = torch.tensor([x[j] if j < len(x) else 0 for x in firing], device=dev)[:, None]
-        g = _periodic_round(g, cfg, [j < len(firing[s]) for s in range(S)], dev,
+        fire = [j < len(x) for x in firing]
+        ints = torch.tensor([x[j] if j < len(x) else 0 for x in firing] + fire, device=dev)
+        at = ints[:S, None]
+        g = _periodic_round(g, cfg, fire, None if all(fire) else ints[S:].bool(),
                             end=torch.gather(n_pose_series, 1, at)[:, 0],
                             end_obs=(None if n_obs_series is None
                                      else torch.gather(n_obs_series, 1, at)[:, 0]))
@@ -826,7 +832,7 @@ def _mapping_periodic(ns: SlamState, outs, aux, fires, act, closed, kcf, obs, po
               for s in range(S)]
         do_p = [act[s] and not fb[s] and fires[s][-1] for s in range(S)]
         if any(do_p):
-            g2 = _periodic_round(g2, cfg, do_p, dev)
+            g2 = _periodic_round(g2, cfg, do_p, _enable(do_p, dev))
     if any(do_p):
         pose = None
         if cfg.use_gps_prior and not cfg.mapping_publish_refine:
@@ -856,7 +862,7 @@ def _loc_periodic(st: SlamState, ns: SlamState, outs, aux, fires, act, okp, cfg:
         fb = [act[s] and any(fires[s][:-1]) for s in range(S)]
         do_gn = [act[s] and not fb[s] and fires[s][-1] for s in range(S)]
         if any(do_gn):
-            g2 = _periodic_round(g2, cfg, do_gn, dev)
+            g2 = _periodic_round(g2, cfg, do_gn, _enable(do_gn, dev))
     do_p = [act[s] and not fb[s] and fires[s][-1] for s in range(S)]
     if any(do_p) and (cfg.periodic_gn_window == 0 or cfg.periodic_gn_window_landmarks):
         outs = _patch_last(outs, g2, aux, cfg, do_p)
@@ -939,19 +945,6 @@ def _fresh(x):
     return tuple(_fresh(v) for v in x) if isinstance(x, tuple) else x
 
 
-def _copy_into(dsts, srcs):
-    """Each of `srcs` into its place in `dsts`, one `_foreach_copy_` per
-    dtype; a source that is its destination is skipped."""
-    groups = {}
-    for d, s in zip(dsts, srcs):
-        if s is not d:
-            ds, ss = groups.setdefault(d.dtype, ([], []))
-            ds.append(d)
-            ss.append(s)
-    for ds, ss in groups.values():
-        torch._foreach_copy_(ds, ss)
-
-
 def _use_graphs(x, assoc_mesh) -> bool:
     """Whether `blocked_core_batched` replays its blocks as CUDA graphs: for
     inputs `x` on CUDA, without a mesh (the sharded association keeps its
@@ -1008,7 +1001,7 @@ class _BlockGraph:
         """The body on the arguments whose tensors are `leaves`: (the static
         state before the block, the tail's results in the pool)."""
         global graph_replays
-        _copy_into(self.ins, leaves)
+        gn._copy_into(self.ins, leaves)
         self.head.replay()
         if self.tail is not None:
             _launch_assoc(*self.kargs, out=self.found)
