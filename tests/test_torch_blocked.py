@@ -266,7 +266,8 @@ def test_blocks_stay_eager_off_the_card_and_with_a_mesh(case):
         if made:        # the next test file in this worker gets no world
             torch.distributed.destroy_process_group()
     assert closed
-    assert blocked.graph_captures == 0 and blocked.graph_replays == 0 and not blocked._graphs
+    graphs = blocked.block_graphs
+    assert graphs.captures == 0 and graphs.replays == 0 and len(graphs) == 0
 
 
 def test_blocked_zero_frames_equals_run_sequence():

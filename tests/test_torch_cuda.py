@@ -25,6 +25,7 @@ from tpuslam_torch.ops import assoc_kernel as A
 from tpuslam_torch.ops import cholesky as C
 from tpuslam_torch.parallel import fusion
 from tpuslam_torch.parallel.batch import initial_states, run_sequences_batched
+from tpuslam_torch.runtime import cuda_graphs as cg
 from tpuslam_torch.runtime.config import SlamConfig
 from tpuslam_torch.sim import SimConfig, simulate, skidpad, trackdrive
 
@@ -638,13 +639,13 @@ def _eager(monkeypatch, fn):
 
 
 @pytest.fixture
-def deterministic(monkeypatch):
+def deterministic():
     """torch's deterministic algorithms, so that the GNs' `index_add_` sums
     add in a fixed order (on the card they are atomics otherwise, and a
     value after a GN may differ in its last bits from one run to the next),
     and the graphs captured anew under them."""
-    monkeypatch.setattr(blocked, "_graphs", {})
-    monkeypatch.setattr(gn, "_window_graphs", {})
+    blocked.block_graphs.clear()
+    gn.window_graphs.clear()
     torch.use_deterministic_algorithms(True, warn_only=True)
     yield
     torch.use_deterministic_algorithms(False)
@@ -656,7 +657,7 @@ def _assert_graph_equals_eager(got, eager, eager_again, atol):
     which they differ even so is not deterministic eagerly: there a float
     is held within `atol` of the first eager run and an integer or flag to
     one of the two."""
-    trio = [blocked._tensors(x) for x in (got, eager, eager_again)]
+    trio = [cg.tensors(x) for x in (got, eager, eager_again)]
     assert len({len(x) for x in trio}) == 1
     for i, (g, a, b) in enumerate(zip(*trio)):
         g, a, b = g.cpu(), a.cpu(), b.cpu()
@@ -685,9 +686,9 @@ def test_block_graphs_equal_eager_fleet_with_a_fallback(cuda, deterministic, mon
     def run():
         return _core(initial_states(cap, 8, cuda), *ins, cfg, 32)
     eager, eager_again = _eager(monkeypatch, run), _eager(monkeypatch, run)
-    replays = blocked.graph_replays
+    replays = blocked.block_graphs.replays
     got = run()
-    assert blocked.graph_replays > replays
+    assert blocked.block_graphs.replays > replays
     tp = got[1].pose.shape[1]
     assert got[2][0] < tp and got[2][1:] == [tp] * 7, got[2]
     assert got[2] == eager[2] == eager_again[2]
@@ -707,9 +708,9 @@ def test_block_graphs_equal_eager_improved_block16(cuda, deterministic, monkeypa
     def run():
         return run_pass_blocked(*ins, cfg, block=16)
     eager, eager_again = _eager(monkeypatch, run), _eager(monkeypatch, run)
-    replays = blocked.graph_replays
+    replays = blocked.block_graphs.replays
     got = run()
-    assert blocked.graph_replays > replays
+    assert blocked.block_graphs.replays > replays
     _assert_graph_equals_eager(got, eager, eager_again, chip_smoke.POSE_ATOL)
 
 
@@ -719,46 +720,70 @@ def test_block_graphs_leave_earlier_results_alone(cuda):
     cfg = SlamConfig(capacity=GraphCapacity(384, 256, 4096), **FLEET_SLAM)
     first = run_sequences_blocked_batched(initial_states(cfg.capacity, 4, cuda),
                                           *_fleet_inputs(cuda, 4, 0), cfg, block=32)
-    kept = blocked._fresh(first)
-    replays = blocked.graph_replays
+    kept = cg.fresh(first)
+    replays = blocked.block_graphs.replays
     second = run_sequences_blocked_batched(initial_states(cfg.capacity, 4, cuda),
                                            *_fleet_inputs(cuda, 4, 10), cfg, block=32)
-    assert blocked.graph_replays > replays
-    for a, b in zip(blocked._tensors(first), blocked._tensors(kept)):
+    assert blocked.block_graphs.replays > replays
+    for a, b in zip(cg.tensors(first), cg.tensors(kept)):
         assert torch.equal(a, b)
     assert not torch.equal(first[1].pose, second[1].pose)
 
 
-def test_block_graphs_capture_once_per_key_and_replay_per_block(cuda, monkeypatch):
+def test_block_graphs_capture_once_per_key_and_replay_per_block(cuda):
     """A new key is captured once, in the call that meets it (its mapping
     and its localization blocks: two keys); each block after that is one
     replay, as each is one association kernel launch."""
-    monkeypatch.setattr(blocked, "_graphs", {})
+    graphs = blocked.block_graphs
+    graphs.clear()
     cfg = SlamConfig(capacity=GraphCapacity(384, 256, 4096), **FLEET_SLAM)
     for k, seed in enumerate((0, 10)):
-        captures, replays, launches = blocked.graph_captures, blocked.graph_replays, A.launches
+        captures, replays, launches = graphs.captures, graphs.replays, A.launches
         run_sequences_blocked_batched(initial_states(cfg.capacity, 3, cuda),
                                       *_fleet_inputs(cuda, 3, seed), cfg, block=32)
-        assert blocked.graph_captures - captures == (2 if k == 0 else 0)
+        assert graphs.captures - captures == (2 if k == 0 else 0)
         blocks = A.launches - launches
-        assert blocks >= 2 and blocked.graph_replays - replays == blocks
-    assert len(blocked._graphs) == 2
+        assert blocks >= 2 and graphs.replays - replays == blocks
+    assert len(graphs) == 2
 
 
-def test_block_graph_segments_do_not_sync(cuda, monkeypatch):
+def test_block_graphs_capture_again_under_deterministic_algorithms(cuda):
+    """A block key captured with torch's deterministic algorithms off is
+    captured again, not replayed, once they are on: they choose the kernels
+    a capture holds."""
+    graphs = blocked.block_graphs
+    graphs.clear()
+    cfg = SlamConfig(capacity=GraphCapacity(384, 256, 4096), **FLEET_SLAM)
+
+    def run():
+        run_sequences_blocked_batched(initial_states(cfg.capacity, 2, cuda),
+                                      *_fleet_inputs(cuda, 2, 0), cfg, block=32)
+    run()
+    captures = graphs.captures
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        run()
+    finally:
+        torch.use_deterministic_algorithms(False)
+    assert graphs.captures - captures == 2
+    assert sorted(k[3] for k in graphs) == [False, False, True, True]
+
+
+def test_block_graph_segments_do_not_sync(cuda):
     """A replayed block's copies in, its two graphs and the association
     kernel between them make no host sync."""
-    monkeypatch.setattr(blocked, "_graphs", {})
+    blocked.block_graphs.clear()
     cfg = SlamConfig(capacity=GraphCapacity(384, 256, 4096), **FLEET_SLAM)
     run_sequences_blocked_batched(initial_states(cfg.capacity, 2, cuda),
                                   *_fleet_inputs(cuda, 2, 0), cfg, block=32)
-    assert len(blocked._graphs) == 2
-    for bg in blocked._graphs.values():
+    assert len(blocked.block_graphs) == 2
+    for bg in blocked.block_graphs.values():
         leaves = [t.clone() for t in bg.ins]
         torch.cuda.synchronize()
         torch.cuda.set_sync_debug_mode("error")
         try:
-            bg.run(leaves)
+            bg.load(leaves)
+            bg.step()
         finally:
             torch.cuda.set_sync_debug_mode(0)
         torch.cuda.synchronize()
@@ -811,19 +836,20 @@ def test_window_graphs_equal_eager_improved_fleet(cuda, deterministic, monkeypat
         return run_sequences_blocked_batched(initial_states(cfg.capacity, 8, cuda), *ins, cfg,
                                              block=32)
     eager, eager_again = _eager_windows(monkeypatch, run), _eager_windows(monkeypatch, run)
+    graphs = gn.window_graphs
     for k in range(2):
-        counts = (gn.window_graph_captures, gn.window_graph_replays, blocked.window_gn_rounds,
+        counts = (graphs.captures, graphs.replays, blocked.window_gn_rounds,
                   blocked.window_gn_firings)
         got = run()
         captures, replays, rounds, firings = (
-            a - b for a, b in zip((gn.window_graph_captures, gn.window_graph_replays,
+            a - b for a, b in zip((graphs.captures, graphs.replays,
                                    blocked.window_gn_rounds, blocked.window_gn_firings), counts))
         assert captures == (2 if k == 0 else 0)
         assert replays == rounds > 0
         assert firings < 8 * rounds
         _assert_graph_equals_eager(got, eager, eager_again, chip_smoke.POSE_ATOL)
-    assert len(gn._window_graphs) == 2
-    assert {(key[4], key[5]) for key in gn._window_graphs} == {(False, False), (False, True)}
+    assert len(graphs) == 2
+    assert {key[1][4:] for key in graphs} == {(False, False), (False, True)}
 
 
 @pytest.mark.parametrize("anchor", list(WG.ANCHORS))
@@ -841,9 +867,9 @@ def test_window_graphs_equal_eager_sessions_stopping_apart(cuda, deterministic, 
         return gn.optimize_window(g, WG.CFG, WG.W, WG.EW, enable=enable, landmarks=landmarks,
                                   end=end, end_obs=end_obs)
     eager, eager_again = _eager_windows(monkeypatch, run), _eager_windows(monkeypatch, run)
-    replays = gn.window_graph_replays
+    replays = gn.window_graphs.replays
     got = run()
-    assert gn.window_graph_replays == replays + 1
+    assert gn.window_graphs.replays == replays + 1
     _assert_graph_equals_eager(got, eager, eager_again, chip_smoke.POSE_ATOL)
     assert torch.equal(got.poses[3], g.poses[3]) and torch.equal(got.lm_xy[3], g.lm_xy[3])
 
@@ -860,25 +886,25 @@ def test_window_graphs_equal_eager_in_the_per_frame_batched_engine(cuda, determi
         return run_sequences_batched(initial_states(cfg.capacity, 3, cuda), obs, valid, poses,
                                      cfg)
     eager, eager_again = _eager_windows(monkeypatch, run), _eager_windows(monkeypatch, run)
-    replays = gn.window_graph_replays
+    replays = gn.window_graphs.replays
     got = run()
-    assert gn.window_graph_replays > replays
+    assert gn.window_graphs.replays > replays
     _assert_graph_equals_eager(got, eager, eager_again, chip_smoke.POSE_ATOL)
 
 
-def test_window_graph_segments_do_not_sync(cuda, monkeypatch):
+def test_window_graph_segments_do_not_sync(cuda):
     """A replayed round's copies in and its two graphs make no host sync."""
-    monkeypatch.setattr(gn, "_window_graphs", {})
+    gn.window_graphs.clear()
     g, end, end_obs, enable = WG.window_batch(cuda, True, "end_and_end_obs")
     gn.optimize_window(g, WG.CFG, WG.W, WG.EW, enable=enable, end=end, end_obs=end_obs)
-    (wg,) = gn._window_graphs.values()
+    (wg,) = gn.window_graphs.values()
     ins = (gn._graph_fields(torch.clone, g), enable.clone(), end.clone(), end_obs.clone())
     torch.cuda.synchronize()
     torch.cuda.set_sync_debug_mode("error")
     try:
         wg.load(*ins)
-        wg.head.replay()
-        wg.tail.replay()
+        for graph in wg.graphs:
+            graph.replay()
     finally:
         torch.cuda.set_sync_debug_mode(0)
     torch.cuda.synchronize()

@@ -112,9 +112,7 @@ def test_window_loop_without_its_read_equals_the_early_exit_loop(landmarks, anch
     loop = gn._WindowGraph(g, CFG, W, EW, landmarks, end, end_obs)
     loop.load(g, enable, end, end_obs)
     for _ in range(CFG.iterations):
-        loop._head()
-        loop._solve()
-        loop._tail()
+        loop.step()
     assert torch.equal(loop.g.poses, want.poses) and torch.equal(loop.g.lm_xy, want.lm_xy)
     got = loop.run(g, enable, end, end_obs)
     for f in dataclasses.fields(G.FactorGraph):

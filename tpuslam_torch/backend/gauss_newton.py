@@ -60,6 +60,7 @@ from tpuslam_torch import compat
 from tpuslam_torch.backend.graph import FactorGraph
 from tpuslam_torch.backend.residuals import landmark_residuals, odometry_residuals
 from tpuslam_torch.geometry import se2
+from tpuslam_torch.runtime import cuda_graphs as cg
 from tpuslam_torch.runtime.tracing import stage
 
 __all__ = ["GNConfig", "assemble", "schur_solve", "schur_solve_split",
@@ -682,19 +683,6 @@ def _window_update(g: FactorGraph, system: dict, dp) -> FactorGraph:
     return dataclasses.replace(g, poses=poses.reshape(S, P, 3), lm_xy=lm_xy)
 
 
-_PRIOR_AXES: dict = {}   # (dtype, device): (diag(1, 1, 0), diag(0, 0, 1))
-
-
-def _prior_axes(dtype, dev):
-    """The selectors of a pose prior's x/y and heading rows, made once per
-    dtype and device: a CUDA graph cannot copy them from the host."""
-    key = (dtype, dev)
-    if key not in _PRIOR_AXES:
-        _PRIOR_AXES[key] = tuple(torch.diag(torch.tensor(d, dtype=dtype, device=dev))
-                                 for d in ([1.0, 1.0, 0.0], [0.0, 0.0, 1.0]))
-    return _PRIOR_AXES[key]
-
-
 def _window_chain(g: FactorGraph, cfg: GNConfig, W: int, n, sess):
     """The pose side of a stacked graph's [S] fixed-lag window ending before
     pose `n` [S, 1]: (w0 [S, 1] its first pose, kg [S, W] the global pose
@@ -731,7 +719,8 @@ def _window_chain(g: FactorGraph, cfg: GNConfig, W: int, n, sess):
     pose_valid = (kg < n).to(dtype)
     ixy = prior_info_w[..., 0] * pose_valid
     ith = prior_info_w[..., 1] * pose_valid
-    eye_xy, eye_th = _prior_axes(dtype, dev)
+    eye_xy = cg.const(((1.0, 0.0, 0.0), (0.0, 1.0, 0.0), (0.0, 0.0, 0.0)), dtype, dev)
+    eye_th = cg.const(((0.0, 0.0, 0.0), (0.0, 0.0, 0.0), (0.0, 0.0, 1.0)), dtype, dev)
     h_diag = h_diag + ixy[..., None, None] * eye_xy + ith[..., None, None] * eye_th
     r_pr = poses_w - _take(g.prior_pose, kgl, sess)
     r_pr = torch.cat([r_pr[..., :2], se2.wrap_angle(r_pr[..., 2:])], dim=-1)
@@ -759,85 +748,47 @@ def optimize_window(g: FactorGraph, cfg: GNConfig, window: int, edge_window: int
             end=end, end_obs=end_obs), enable)
 
 
-window_graph_captures = 0  # window-GN loops this process captured as CUDA graphs, one per key
-window_graph_replays = 0   # window-GN rounds this process ran by replaying them
-_WINDOW_GRAPH_KEYS = 4     # keys kept, the least recently used dropped: each holds a memory pool
-_window_graphs: dict = {}
+window_graphs = cg.GraphCache(4)   # `_WindowGraph`s by key
 
 
 def _use_window_graphs(g: FactorGraph) -> bool:
     """Whether `optimize_window` replays its loop as CUDA graphs: a stacked
-    graph of S > 1 sessions on CUDA, not inside another capture."""
-    return (g.poses.is_cuda and g.poses.dim() == 3 and g.poses.shape[0] > 1
-            and not torch.cuda.is_current_stream_capturing())
+    graph of S > 1 sessions, capturable."""
+    return g.poses.dim() == 3 and g.poses.shape[0] > 1 and cg.capturable(g.poses)
 
 
-def _copy_into(dsts, srcs):
-    """Each of `srcs` into its place in `dsts`, one `_foreach_copy_` per
-    dtype; a source that is its destination is skipped."""
-    groups = {}
-    for d, s in zip(dsts, srcs):
-        if s is not d:
-            ds, ss = groups.setdefault(d.dtype, ([], []))
-            ds.append(d)
-            ss.append(s)
-    for ds, ss in groups.values():
-        torch._foreach_copy_(ds, ss)
-
-
-class _WindowGraph:
+class _WindowGraph(cg.SplitGraph):
     """`optimize_window`'s loop over a stacked graph [S] on static inputs (a
-    copy of the first round's graph, `lm_prior`, `end`, `end_obs` and the
-    [S] running mask), `cfg.iterations` iterations a round, each in three
-    parts: the head, from the graph's fields to the reduced system
+    copy of the first round's graph, `lm_prior`, `end`, `end_obs`, and the
+    [S] running mask), `cfg.iterations` iterations a round, each one step:
+    the head, from the graph's fields to the reduced system
     (`_window_system`); the factor and the solve (`_factor_solve`),
     launched eagerly into a static `dp`; the tail, from `dp` to the update
     (`_window_update`) kept for the sessions still running, and the
     running mask updated, both written back into the static inputs for the
     next iteration: `_iterate_batched`'s loop, with its bits. Once every
-    session has stopped, an iteration changes nothing. On CUDA the head and
-    the tail are CUDA graphs, captured after an eager warm-up on a stream
-    of their own, in one memory pool; on the CPU they run eagerly."""
+    session has stopped, an iteration changes nothing."""
 
     def __init__(self, g: FactorGraph, cfg: GNConfig, window: int, edge_window: int,
                  landmarks: bool, end, end_obs):
         self.cfg, self.window, self.edge_window = cfg, window, edge_window
-        self.g = _graph_fields(lambda x: x.clone(memory_format=torch.contiguous_format), g)
-        self.lm_prior = g.lm_xy.clone() if landmarks else None
-        self.end = None if end is None else end.clone()
-        self.end_obs = None if end_obs is None else end_obs.clone()
+        static = cg.fresh((g, g.lm_xy if landmarks else None, end, end_obs))
+        self.g, self.lm_prior, self.end, self.end_obs = static
         S, dev = g.poses.shape[0], g.poses.device
         self.running = torch.ones(S, dtype=torch.bool, device=dev)
-        self.dp = torch.empty(S, 3 * window, dtype=g.poses.dtype, device=dev)
-        self.ins = [getattr(self.g, f.name) for f in dataclasses.fields(self.g)] + [
-            x for x in (self.lm_prior, self.end, self.end_obs) if x is not None]
-        self.head = self.tail = self.system = None
-        if not g.poses.is_cuda:
-            return
-        side = torch.cuda.Stream(dev)
-        side.wait_stream(torch.cuda.current_stream(dev))
-        with torch.cuda.stream(side):    # the warm-up makes the constants a capture reads
-            self._head()
-            self._solve()
-            self._tail()
-        torch.cuda.current_stream(dev).wait_stream(side)
-        pool = torch.cuda.graph_pool_handle()
-        self.head, self.tail = torch.cuda.CUDAGraph(), torch.cuda.CUDAGraph()
-        with torch.cuda.graph(self.head, pool=pool, stream=side):
-            self._head()
-        with torch.cuda.graph(self.tail, pool=pool, stream=side):
-            self._tail()
+        self.dp = torch.zeros(S, 3 * window, dtype=g.poses.dtype, device=dev)
+        super().__init__(cg.tensors(static), split=True)
 
-    def _head(self):
+    def head(self):
         self.system = _window_system(self.g, self.cfg, self.window, self.edge_window,
                                      self.lm_prior is not None, self.lm_prior, self.end,
                                      self.end_obs)
 
-    def _solve(self):
+    def middle(self):
         with _fp32():
             self.dp.copy_(_factor_solve(self.system["s"], self.system["rhs"]))
 
-    def _tail(self):
+    def tail(self):
         g, running, tol = self.g, self.running, self.cfg.early_exit_tol
         g2 = _window_update(g, self.system, self.dp)
         keep = running[:, None, None]
@@ -854,9 +805,8 @@ class _WindowGraph:
         """The round's inputs into the static ones: `g`, its map as the
         prior's centre, `enable` ([S] or None for all), `end` and `end_obs`
         (given where the key's were)."""
-        _copy_into(self.ins, [getattr(g, f.name) for f in dataclasses.fields(g)] + [
-            x for x in (g.lm_xy if self.lm_prior is not None else None, end, end_obs)
-            if x is not None])
+        super().load(cg.tensors(
+            (g, g.lm_xy if self.lm_prior is not None else None, end, end_obs)))
         if enable is None:
             self.running.fill_(True)
         else:
@@ -868,13 +818,9 @@ class _WindowGraph:
         waits on the card in every iteration already, so the loop reads the
         running mask after each and stops once no session runs."""
         self.load(g, enable, end, end_obs)
-        head = self._head if self.head is None else self.head.replay
-        tail = self._tail if self.tail is None else self.tail.replay
         for _ in range(self.cfg.iterations):
             with stage("slam.gn.iteration"):
-                head()
-                self._solve()
-                tail()
+                self.step()
                 if self.cfg.early_exit_tol > 0.0 and not bool(self.running.any()):
                     break
         return dataclasses.replace(g, poses=self.g.poses.clone(), lm_xy=self.g.lm_xy.clone())
@@ -883,24 +829,12 @@ class _WindowGraph:
 def _window_round(g: FactorGraph, cfg: GNConfig, window: int, edge_window: int,
                   landmarks: bool, enable, end, end_obs) -> FactorGraph:
     """`optimize_window` on a stacked graph by replaying its `_WindowGraph`,
-    captured at the first round of a key: `cfg`, the window sizes,
-    `landmarks`, whether `end` / `end_obs` are given, torch's deterministic
-    setting, the device and every input's shape and dtype. One
+    captured at the first round of a key (`cuda_graphs.key`, with `cfg`, the
+    window sizes, `landmarks` and which of `end` / `end_obs` are given). One
     `slam.window_graph` span."""
-    global window_graph_captures, window_graph_replays
-    leaves = [getattr(g, f.name) for f in dataclasses.fields(g)] + [
-        x for x in (end, end_obs) if x is not None]
-    key = (cfg, window, edge_window, landmarks, end is None, end_obs is None,
-           torch.are_deterministic_algorithms_enabled(), g.poses.device,
-           tuple((t.shape, t.dtype) for t in leaves))
-    wg = _window_graphs.pop(key, None)
-    if wg is None:
-        while len(_window_graphs) >= _WINDOW_GRAPH_KEYS:
-            del _window_graphs[next(iter(_window_graphs))]
-        wg = _WindowGraph(g, cfg, window, edge_window, landmarks, end, end_obs)
-        window_graph_captures += 1
-    _window_graphs[key] = wg
+    k = cg.key("window", (cfg, window, edge_window, landmarks, end is None, end_obs is None),
+               cg.tensors((g, end, end_obs)))
+    wg = window_graphs.lookup(
+        k, lambda: _WindowGraph(g, cfg, window, edge_window, landmarks, end, end_obs))
     with stage("slam.window_graph"):
-        out = wg.run(g, enable, end, end_obs)
-    window_graph_replays += 1
-    return out
+        return wg.run(g, enable, end, end_obs)

@@ -29,14 +29,13 @@ per block. Host reads per pass: one for the compaction width, one per
 block, and the GNs' own (one per iteration).
 
 On CUDA, without a mesh, `blocked_core_batched` replays each block's body
-as CUDA graphs (`_run_block`): a block is a fixed-shape chain of a few
-hundred small kernels, each of which would otherwise wait on its launch.
-The body is split at its association: a graph up to the kernel's inputs,
-the association kernel launched eagerly into fixed outputs, a graph of the
-rest (one graph where the association is dense). The host reads, the GNs,
-the state holds and the merge stay eager, and the graphs replay the eager
-kernels in the eager order, so the results are the eager path's bit for
-bit. `graph_captures` and `graph_replays` count what this process did.
+as CUDA graphs (`_run_block`, `runtime/cuda_graphs.py`), split at its
+association: a graph up to the kernel's inputs, the association kernel
+launched eagerly into fixed outputs, a graph of the rest (one graph where
+the association is dense). The host reads, the GNs, the state holds and the
+merge stay eager, and the graphs replay the eager kernels in the eager
+order, so the results are the eager path's bit for bit. `block_graphs`
+keeps the captures and counts what this process captured and replayed.
 Each batched periodic-GN round is a `slam.window_gn` span, counted in
 `window_gn_rounds` and `window_gn_firings`, and the publish refine after a
 block's firings a `slam.publish_refine` span. A round of S > 1 sessions on
@@ -108,7 +107,7 @@ import torch
 
 from tpuslam_torch.backend import gauss_newton as gn
 from tpuslam_torch.frontend.keyframe import (
-    KeyframeOutputs, _add_info, _assoc_kernel_args, _body_xy, _check_supported, _const,
+    KeyframeOutputs, _add_info, _assoc_kernel_args, _body_xy, _check_supported,
     _first_index, _gate_cost, _gn_config, _indexed_assoc, _launch_assoc, _obs_information,
     _periodic_due, _pose_refine_rows, _prefix_argmin_exclusive, _prior_info,
     _provider_associate, _publish_refine, periodic_gn,
@@ -119,6 +118,7 @@ from tpuslam_torch.frontend.state import (
 )
 from tpuslam_torch.geometry import se2
 from tpuslam_torch.geometry.spherical import cone_to_global, global_to_body_spherical
+from tpuslam_torch.runtime import cuda_graphs as cg
 from tpuslam_torch.runtime.config import SlamConfig
 from tpuslam_torch.runtime.tracing import stage
 
@@ -235,7 +235,7 @@ def _scatter_poses(g, poses, odo, pose_idx, ins, cfg: SlamConfig):
         g = dataclasses.replace(
             g, prior_pose=_drop_set(g.prior_pose, to, poses),
             prior_info=_drop_set(g.prior_info, to,
-                                 _const(info, poses.dtype, poses.device).expand(*to.shape, 2)))
+                                 cg.const(info, poses.dtype, poses.device).expand(*to.shape, 2)))
     return g
 
 
@@ -918,124 +918,68 @@ def _block_fires(state: SlamState, okp, aux, cfg: SlamConfig):
 
 _BODIES = {"mapping": (_mapping_head, _mapping_tail), "loc": (_loc_head, _loc_tail)}
 
-graph_captures = 0    # block bodies this process captured as CUDA graphs, one per key
-graph_replays = 0     # blocks this process ran by replaying them
 window_gn_rounds = 0  # batched periodic-GN rounds this process ran (`_periodic_round`)
 window_gn_firings = 0  # session windows those rounds solved: their firing sessions summed
-_GRAPH_KEYS = 8       # keys kept, the least recently used dropped: each holds a memory pool
-_graphs: dict = {}
-
-
-def _tensors(x) -> list:
-    """The tensors of a nest of dataclasses and tuples, in order."""
-    if torch.is_tensor(x):
-        return [x]
-    if dataclasses.is_dataclass(x):
-        x = [getattr(x, f.name) for f in dataclasses.fields(x)]
-    return [t for v in x for t in _tensors(v)] if isinstance(x, (tuple, list)) else []
-
-
-def _fresh(x):
-    """`x`, a nest of dataclasses and tuples, with each tensor copied."""
-    if torch.is_tensor(x):
-        return x.clone(memory_format=torch.contiguous_format)
-    if dataclasses.is_dataclass(x):
-        return dataclasses.replace(x, **{f.name: _fresh(getattr(x, f.name))
-                                         for f in dataclasses.fields(x)})
-    return tuple(_fresh(v) for v in x) if isinstance(x, tuple) else x
+block_graphs = cg.GraphCache(8)   # `_BlockGraph`s by key
 
 
 def _use_graphs(x, assoc_mesh) -> bool:
     """Whether `blocked_core_batched` replays its blocks as CUDA graphs: for
-    inputs `x` on CUDA, without a mesh (the sharded association keeps its
-    collectives eager), and not inside another capture."""
-    return x.is_cuda and assoc_mesh is None and not torch.cuda.is_current_stream_capturing()
+    inputs `x` capturable, and without a mesh (the sharded association
+    keeps its collectives eager)."""
+    return assoc_mesh is None and cg.capturable(x)
 
 
-class _BlockGraph:
-    """One block kind's body at one key as CUDA graphs over static inputs
-    (a copy of the first block's arguments): the head up to the association
-    kernel's inputs, the kernel launched eagerly between the two graphs
-    into static outputs, then the tail; one graph of the whole body where
-    the association is dense. Captured after an eager warm-up on a stream
-    of its own, both graphs in one memory pool, where the body's results
-    stay until the next replay."""
+class _BlockGraph(cg.SplitGraph):
+    """One block kind's body at one key over static inputs (a copy of the
+    first block's arguments): the head up to the association kernel's
+    inputs, the kernel launched eagerly between the two graphs into static
+    outputs, then the tail; one graph of the whole body where the
+    association is dense."""
 
     def __init__(self, kind: str, args, cfg: SlamConfig):
-        head, tail = _BODIES[kind]
-        self.static = _fresh(args)
-        self.ins = _tensors(self.static)
-        dev = self.ins[0].device
+        self.body, self.cfg = _BODIES[kind], cfg
+        self.static = cg.fresh(args)
         S, B, N = args[2].shape
-        self.found = None
-        if _indexed_assoc(cfg):
-            self.found = (torch.zeros(S, B * N, dtype=_I32, device=dev),
-                          torch.zeros(S, B * N, dtype=torch.bool, device=dev),
-                          torch.zeros(S, B * N, dtype=torch.float32, device=dev))
-        side = torch.cuda.Stream(dev)
-        side.wait_stream(torch.cuda.current_stream(dev))
-        with torch.cuda.stream(side):    # the warm-up makes the constants a capture reads
-            h = head(*self.static, cfg)
-            if self.found is not None:
-                _assoc_kernel_args(*h["assoc_in"], cfg)
-            self._tail(tail, h, cfg)
-        torch.cuda.current_stream(dev).wait_stream(side)
-        pool = torch.cuda.graph_pool_handle()
-        self.head, self.tail = torch.cuda.CUDAGraph(), None
-        with torch.cuda.graph(self.head, pool=pool, stream=side):
-            h = head(*self.static, cfg)
-            if self.found is None:
-                self.out = self._tail(tail, h, cfg)
-            else:
-                self.kargs = _assoc_kernel_args(*h["assoc_in"], cfg)
-        if self.found is not None:
-            self.tail = torch.cuda.CUDAGraph()
-            with torch.cuda.graph(self.tail, pool=pool, stream=side):
-                self.out = self._tail(tail, h, cfg)
+        self.found = tuple(torch.zeros(S, B * N, dtype=t, device=args[2].device)
+                           for t in (_I32, torch.bool, torch.float32)) \
+            if _indexed_assoc(cfg) else None
+        super().__init__(cg.tensors(self.static), split=self.found is not None)
 
-    def _tail(self, tail, h, cfg: SlamConfig):
-        ns, outs, aux = tail(*self.static, h, self.found, cfg)
-        return ns, outs, aux, _block_fires(self.static[0], self.static[4], aux, cfg)
+    def head(self):
+        self.h = self.body[0](*self.static, self.cfg)
+        if self.split:
+            self.kargs = _assoc_kernel_args(*self.h["assoc_in"], self.cfg)
 
-    def run(self, leaves):
-        """The body on the arguments whose tensors are `leaves`: (the static
-        state before the block, the tail's results in the pool)."""
-        global graph_replays
-        gn._copy_into(self.ins, leaves)
-        self.head.replay()
-        if self.tail is not None:
-            _launch_assoc(*self.kargs, out=self.found)
-            self.tail.replay()
-        graph_replays += 1
-        return self.static[0], self.out
+    def middle(self):
+        _launch_assoc(*self.kargs, out=self.found)
+
+    def tail(self):
+        h, self.h = self.h, None   # the head's results are not kept past the tail
+        ns, outs, aux = self.body[1](*self.static, h, self.found, self.cfg)
+        self.out = ns, outs, aux, _block_fires(self.static[0], self.static[4], aux, self.cfg)
 
 
 def _run_block(kind: str, args, cfg: SlamConfig, assoc_mesh, graphs: bool):
     """(the state before the block, (new_state, outputs, aux, fires)) of one
     block of `blocked_core_batched`: `kind`'s body run eagerly, or with
-    `graphs` by replaying its CUDA graphs, captured at the first block of a
-    key: the kind, `cfg`, the device and every argument's shape and dtype,
-    all that the body branches on or is sized by. A replay's state before
-    the block is its graphs' static inputs, and its new state, aux and fires
-    are in their pool: both change at the key's next replay, so what is
-    kept past it is copied. Its outputs are copies already."""
-    global graph_captures
+    `graphs` by replaying its `_BlockGraph`, captured at the first block of
+    a key (`cuda_graphs.key`, with the kind and `cfg`). A replay's state
+    before the block is its graphs' static inputs, and its new state, aux
+    and fires are in their pool: both change at the key's next replay, so
+    what is kept past it is copied. Its outputs are copies already."""
     if not graphs:
         block = _mapping_block if kind == "mapping" else _loc_block
         ns, outs, aux = block(*args, cfg, assoc_mesh)
         return args[0], (ns, outs, aux, _block_fires(args[0], args[4], aux, cfg))
-    leaves = _tensors(args)
-    key = (kind, cfg, leaves[0].device, tuple((t.shape, t.dtype) for t in leaves))
-    bg = _graphs.pop(key, None)
-    if bg is None:
-        while len(_graphs) >= _GRAPH_KEYS:
-            del _graphs[next(iter(_graphs))]
-        bg = _BlockGraph(kind, args, cfg)
-        graph_captures += 1
-    _graphs[key] = bg
+    leaves = cg.tensors(args)
+    bg = block_graphs.lookup(cg.key("block", (kind, cfg), leaves),
+                             lambda: _BlockGraph(kind, args, cfg))
     with stage("slam.block_graph"):
-        old, (ns, outs, aux, fires) = bg.run(leaves)
-        return old, (ns, _map_outputs(torch.clone, outs), aux, fires)
+        bg.load(leaves)
+        bg.step()
+        ns, outs, aux, fires = bg.out
+        return bg.static[0], (ns, _map_outputs(torch.clone, outs), aux, fires)
 
 
 def blocked_core_batched(states: SlamState, obs_seq, valid_seq, pose_seq, cfg: SlamConfig,
@@ -1208,7 +1152,7 @@ def blocked_core_batched(states: SlamState, obs_seq, valid_seq, pose_seq, cfg: S
             cone_distance=torch.where(sel, dist, outs.cone_distance),
             cone_type=torch.where(sel, ctype, outs.cone_type))
     # a replayed block's state lives in its graphs' memory: the caller's is a copy
-    return (_fresh(states) if graphs else states), outs, done_upto
+    return (cg.fresh(states) if graphs else states), outs, done_upto
 
 
 def _pick_compact(valid_seq, state: SlamState):

@@ -33,7 +33,6 @@ batched engine (`parallel.batch`) to run after the frame.
 from __future__ import annotations
 
 import dataclasses
-import functools
 
 import numpy as np
 import torch
@@ -47,6 +46,7 @@ from tpuslam_torch.geometry.spherical import (
 )
 from tpuslam_torch.ops.assoc_kernel import associate_kernel
 from tpuslam_torch.runtime.config import SlamConfig
+from tpuslam_torch.runtime.cuda_graphs import const
 
 _INF = float("inf")
 
@@ -185,15 +185,6 @@ def _associate_shared(state: SlamState, obs, obs_valid, pose, cfg: SlamConfig,
     return glob_all, body_all, cost, gate
 
 
-@functools.lru_cache(maxsize=64)
-def _const(values: tuple, dtype, device):
-    """A small constant tensor, made once per device: a copy from host
-    memory cannot be captured into a CUDA graph, so code that a graph
-    captures (`frontend.blocked`) takes its constants from here, made
-    by the eager run before the capture. Never written to."""
-    return torch.tensor(values, dtype=dtype, device=device)
-
-
 def _mahal_packed(lm_info, cfg: SlamConfig):
     """Packed innovation information, with the scaled-Euclidean cost of a
     landmark that has no information yet: the per-landmark payload the
@@ -201,7 +192,7 @@ def _mahal_packed(lm_info, cfg: SlamConfig):
     fallback = cfg.mahalanobis_gate / cfg.same_cone_threshold ** 2
     has = (lm_info[..., 0] + lm_info[..., 2]) > 0.0
     return torch.where(has[..., None], _innovation_info(lm_info, cfg),
-                       _const((fallback, 0.0, fallback), lm_info.dtype, lm_info.device))
+                       const((fallback, 0.0, fallback), lm_info.dtype, lm_info.device))
 
 
 def _provider_associate(glob, otype, valid, lm_xy, lm_type, n_landmarks, lm_info,
@@ -549,7 +540,7 @@ def _publish_refine(pose_meas, lm, matched, meas_xy, cfg: SlamConfig, iters: int
     w = matched.to(pose_meas.dtype) * cfg.publish_refine_obs_info
     ixy = 1.0 / cfg.gps_prior_std ** 2
     ith = 1.0 / cfg.heading_prior_std ** 2
-    prior_d = _const((ixy, ixy, ith), pose_meas.dtype, pose_meas.device)
+    prior_d = const((ixy, ixy, ith), pose_meas.dtype, pose_meas.device)
     p = pose_meas
     for _ in range(iters):
         h, b = _refine_system(p, lm, meas_xy, w)
